@@ -1,0 +1,14 @@
+# -*- coding: utf-8 -*-
+"""Solvers: exact (dense Cholesky), hierarchical (HODLR-class) and trivial
+(diagonal).
+
+Protocol: ``compute(x, yerr, nns=None)``, ``apply_inverse(y)``,
+``dot_solve(y)``, ``apply_forward(y, i)``, ``get_inverse()``,
+``log_determinant``, ``computed``.
+"""
+
+from .trivial import TrivialSolver  # noqa: F401
+from .basic import BasicSolver  # noqa: F401
+from .hodlr import HODLRSolver  # noqa: F401
+
+__all__ = ["TrivialSolver", "BasicSolver", "HODLRSolver"]
