@@ -1,16 +1,24 @@
 # -*- coding: utf-8 -*-
 """george-tpu-torch: the PyTorch and CUDA port of george-tpu.
 
-The hierarchical (HODLR) marginal log-likelihood path of ``george_tpu``,
-written in PyTorch for an NVIDIA H100: the kernel zoo generated from the
-same YAML specs, the dense and trivial solvers, the HODLR solver in its
-transposed cascade layout with exact-autograd and Hutchinson gradients,
-and the ``GP`` object. The leaf Cholesky on a CUDA tensor is a CUDA kernel
-written for ``sm_90a`` (``csrc/chol.cu``), built from source at first use.
+Two paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
+
+* the hierarchical (HODLR) marginal log-likelihood: the kernel zoo
+  generated from the same YAML specs, the HODLR solver in its transposed
+  cascade layout with exact-autograd and Hutchinson gradients;
+* the compact-support sparse solver for ``WendlandC2Kernel``: CG + SLQ with
+  Hutchinson gradients over a banded (DIA) or padded-neighbor (ELL)
+  layout, and the exact block-tridiagonal Cholesky on sorted 1-D data;
+
+with the dense and trivial solvers and the ``GP`` object. The kernels on
+CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``: the leaf
+Cholesky, its tiled one-warp-per-block variant, the DIA matvec), built from
+source at first use.
 
 The package imports ``torch``, ``numpy`` and ``scipy`` only — never JAX or
-the JAX package — and takes an explicit ``device=`` and ``dtype=`` on the
-solvers and the GP.
+the JAX package. The solvers and the GP take ``device=`` (default
+``"cuda"``, never chosen automatically: pass ``device="cpu"`` on a host
+without a card) and ``dtype=``.
 
 Float32 matrix products run in full FP32: TF32 keeps about three decimal
 digits, which is the class of error (bf16 passes on the TPU's matrix unit
@@ -37,6 +45,7 @@ from .solvers import (  # noqa: E402,F401
     BasicSolver,
     TrivialSolver,
     HODLRSolver,
+    SparseSolver,
 )
 
 __all__ = [
@@ -48,6 +57,7 @@ __all__ = [
     "BasicSolver",
     "TrivialSolver",
     "HODLRSolver",
+    "SparseSolver",
     "kernels",
     "metrics",
     "modeling",

@@ -58,7 +58,9 @@ class GP(ModelSet):
     :param solver: solver class (default: :class:`BasicSolver`, or
         :class:`TrivialSolver` when there is no kernel).
     :param device: torch device of the factorization and the fused
-        likelihood (default CPU); never chosen automatically.
+        likelihood (default ``"cuda"``, the card). It is never chosen
+        automatically: on a host without CUDA, pass ``device="cpu"`` or
+        torch raises at the first tensor.
     :param dtype: working dtype (default ``torch.float64``).
     :param kwargs: forwarded to the solver constructor.
     """
@@ -72,7 +74,7 @@ class GP(ModelSet):
         white_noise=None,
         fit_white_noise=None,
         solver=None,
-        device="cpu",
+        device="cuda",
         dtype=torch.float64,
         **kwargs
     ):

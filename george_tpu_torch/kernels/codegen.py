@@ -2,14 +2,16 @@
 """Kernel DSL compiler, torch target: YAML specs -> generated torch kernel
 classes.
 
-Reads the same spec files as the JAX package's generator
-(``george_tpu/kernels/specs/*.yml``, by file path: nothing of the JAX
-package is imported) and writes ``george_tpu_torch/kernels/generated.py``.
+Reads the port's own copy of the JAX package's spec files
+(``george_tpu_torch/kernels/specs/*.yml``, byte-identical to
+``george_tpu/kernels/specs/``; a test guards the copy) and writes
+``george_tpu_torch/kernels/generated.py``.
 The spec bodies use only ``jnp.exp``/``jnp.sin``/``jnp.cos``, ``safe_sqrt``
 and ``M_PI``; the ``jnp.`` namespace maps to ``torch.``, and any other
 ``jnp`` use is refused so that a new spec cannot slip an untranslated op
 into the port. ``kind: custom`` specs (LCM, WendlandC2) are hand-written
-modules in the JAX package and are not generated here.
+modules and are not generated here: the port's WendlandC2 is in
+``kernels/custom.py``; LCM is not ported yet.
 
 The generated file is checked in, so nothing at run time needs ``yaml``;
 only this tool imports it, inside :func:`main`.
@@ -26,9 +28,7 @@ import re
 import textwrap
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SPEC_DIR = os.path.normpath(
-    os.path.join(HERE, "..", "..", "george_tpu", "kernels", "specs")
-)
+SPEC_DIR = os.path.join(HERE, "specs")
 OUTPUT = os.path.join(HERE, "generated.py")
 
 _ALLOWED_JNP = {"exp", "sin", "cos"}
@@ -38,8 +38,8 @@ HEADER = '''\
 """AUTO-GENERATED by ``python -m george_tpu_torch.kernels.codegen`` — do not
 edit.
 
-Kernel classes compiled from the YAML specs in ``george_tpu/kernels/specs/``
-(torch target).
+Kernel classes compiled from the YAML specs in
+``george_tpu_torch/kernels/specs/`` (torch target).
 """
 
 import torch

@@ -2,8 +2,8 @@
 """AUTO-GENERATED by ``python -m george_tpu_torch.kernels.codegen`` — do not
 edit.
 
-Kernel classes compiled from the YAML specs in ``george_tpu/kernels/specs/``
-(torch target).
+Kernel classes compiled from the YAML specs in
+``george_tpu_torch/kernels/specs/`` (torch target).
 """
 
 import torch

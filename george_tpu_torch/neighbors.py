@@ -1,15 +1,54 @@
 # -*- coding: utf-8 -*-
-"""Host-side data ordering and neighbor-structure normalization (the part
-of ``george_tpu/neighbors.py`` that ``GP.compute`` and
-``HODLRSolver.compute`` call).
+"""Host-side neighbor search, data ordering and neighbor-structure
+normalization (the part of ``george_tpu/neighbors.py`` that ``GP.compute``,
+``HODLRSolver.compute`` and ``SparseSolver.compute`` call).
 
-Both run once per dataset on the host, in numpy; only the resulting
-permutation crosses to the device.
+All of it runs once per dataset on the host, in numpy; only the resulting
+index structures (CSR arrays, permutations) cross to the device. The radius
+query is ``scipy.spatial.cKDTree`` (the JAX package's fallback; its in-tree
+C++ kd-tree is not needed here).
 """
 
 import numpy as np
 
-__all__ = ["ragged_to_csr", "normalize_nns", "morton_sort_samples"]
+__all__ = ["radius_neighbors_csr", "ragged_to_csr", "knn_matrix_to_csr",
+           "normalize_nns", "morton_sort_samples"]
+
+
+def _pairs_to_csr(rows, cols, n):
+    """CSR ``(nbr_idx, row_ptr)`` of the (row, col) pairs, each row's
+    columns ascending; duplicate pairs are kept."""
+    key = np.sort(rows.astype(np.int64) * n + cols.astype(np.int64))
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key // n, minlength=n), out=row_ptr[1:])
+    return key % n, row_ptr
+
+
+def radius_neighbors_csr(x, radius):
+    """All neighbors within ``radius`` of each point, as CSR arrays.
+
+    Returns ``(nbr_idx, row_ptr)`` with ``nbr_idx[row_ptr[i]:row_ptr[i+1]]``
+    the neighbor indices of point ``i`` in ascending order (self included).
+    Vectorized: one ``cKDTree.query_pairs`` for the pairs ``i < j`` at
+    distance ``<= radius``, mirrored, plus the diagonal, sorted by one
+    integer key, with no per-row Python loop (n = 2e5 points with ~200
+    neighbors each pass through here).
+    """
+    x = np.ascontiguousarray(np.atleast_2d(x), dtype=np.float64)
+    n = len(x)
+    if not np.isfinite(radius) or radius <= 0:
+        # Dense fallback: everything neighbors everything.
+        row_ptr = np.arange(0, n * n + 1, n, dtype=np.int64)
+        nbr_idx = np.tile(np.arange(n, dtype=np.int64), n)
+        return nbr_idx, row_ptr
+
+    from scipy.spatial import cKDTree
+
+    pairs = cKDTree(x).query_pairs(float(radius), output_type="ndarray")
+    eye = np.arange(n, dtype=np.int64)
+    rows = np.concatenate([pairs[:, 0], pairs[:, 1], eye])
+    cols = np.concatenate([pairs[:, 1], pairs[:, 0], eye])
+    return _pairs_to_csr(rows, cols, n)
 
 
 def ragged_to_csr(neighbors):
@@ -26,6 +65,28 @@ def ragged_to_csr(neighbors):
         if len(neighbors) else np.empty(0)
     ).astype(np.int64)
     return nbr_idx, row_ptr
+
+
+def knn_matrix_to_csr(arr, n):
+    """Symmetrized CSR pattern from a rectangular kNN matrix (one
+    fixed-size neighbor list per row, ``-1`` = missing). kNN relations are
+    not symmetric, but the sparse solver's operator must be: the pattern is
+    the union ``{(i,j)} U {(j,i)} U {(i,i)}``, deduplicated."""
+    arr = np.asarray(arr, dtype=np.int64)
+    i0 = np.repeat(np.arange(n, dtype=np.int64), arr.shape[1])
+    j0 = arr.ravel()
+    keep = (j0 >= 0) & (j0 < n)
+    i0, j0 = i0[keep], j0[keep]
+    eye = np.arange(n, dtype=np.int64)
+    nbr_idx, row_ptr = _pairs_to_csr(np.concatenate([i0, j0, eye]),
+                                     np.concatenate([j0, i0, eye]), n)
+    # drop repeats: after the sort, equal pairs are adjacent
+    rows = np.repeat(eye, np.diff(row_ptr))
+    uniq = np.ones(len(nbr_idx), dtype=bool)
+    uniq[1:] = (rows[1:] != rows[:-1]) | (nbr_idx[1:] != nbr_idx[:-1])
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows[uniq], minlength=n), out=row_ptr[1:])
+    return nbr_idx[uniq], row_ptr
 
 
 def normalize_nns(nns):

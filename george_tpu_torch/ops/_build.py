@@ -1,10 +1,12 @@
 # -*- coding: utf-8 -*-
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The
-library lives in ``george_tpu_torch/_build/`` under a name keyed on a hash
-of the sources and the flags, so an edited source rebuilds at its next use
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together, so the build takes as long as the slowest source),
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library lives in
+``george_tpu_torch/_build/`` under a name keyed on a hash of the sources
+and the flags, so an edited source rebuilds at its next use
 and an unchanged one is reused across processes. The build runs at first
 use, never at import; a missing ``nvcc`` or a failed compile raises with
 the compiler's output.
@@ -24,9 +26,9 @@ __all__ = ["load", "build", "BUILD_DIR", "CSRC_DIR"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -74,21 +76,43 @@ def build():
             build_info.update(path=out, seconds=0.0, log="(cached)")
         return out
     t0 = time.perf_counter()
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "nvcc failed (exit %d): %s\n%s%s"
-            % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # private scratch, then rename: a concurrent process never loads a
+    # half-written library
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    jobs = []
+    try:
+        for src in srcs:
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append("nvcc failed (exit %d): %s\n%s"
+                              % (proc.returncode, " ".join(cmd), logs[-1]))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed (exit %d): %s\n%s%s"
+                               % (proc.returncode, " ".join(cmd),
+                                  proc.stdout, proc.stderr))
+        os.replace(tmp, out)
+    finally:
+        for _, _, proc in jobs:           # none outlives a failed build
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     build_info.update(path=out, seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
+                      log="".join(logs))
     return out
 
 
@@ -98,12 +122,21 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("george_chol_f32", "george_chol_f64"):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        signatures = {
+            "george_chol_f32": [ptr, ptr, i32, i32, ptr],
+            "george_chol_f64": [ptr, ptr, i32, i32, ptr],
+            "george_chol_uses_smem": [i32, i32],
+            "george_chol_tile_f32": [ptr, ptr, i32, i32, ptr],
+            "george_chol_tile_f64": [ptr, ptr, i32, i32, ptr],
+            "george_chol_tile_blocks_per_cta": [i32, i32],
+            "george_dia_f32": [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr],
+            "george_dia_f64": [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr],
+            "george_dia_uses_smem": [i32, i32, i32],
+        }
+        for name, argtypes in signatures.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, i32, i32, ptr]
+            fn.argtypes = argtypes
             fn.restype = i32
-        lib.george_chol_uses_smem.argtypes = [i32, i32]
-        lib.george_chol_uses_smem.restype = i32
         _lib = lib
     return _lib

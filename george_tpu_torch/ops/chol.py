@@ -29,15 +29,30 @@ card's 132 SMs, each wave as long as one block's serial chain. A later
 version would shorten the chain's per-step cost with panel blocking (a
 barrier per panel of columns, the trailing update as a small GEMM in full
 FP32) and raise occupancy by packing several small blocks into one CTA.
+
+Second kernel, :func:`cholesky_tiled_cuda` (counter
+:data:`chol_tile_kernel_launches`). Replaces
+``george_tpu/ops/chol.py::pallas_cholesky``, the unblocked kernel that
+factors ``block_tile`` blocks per grid step; it is on no solver path (its
+one caller in the JAX package is a test), so nothing here routes to it.
+Same function, same recurrence, same pivot floor: ``cholesky_plain`` is the
+plain version of both kernels. Its layout is one warp per block and several
+blocks per CTA, each column step warp-synchronous; a block sits in shared
+memory when it fits (f32 m <= 128: 3 per CTA) and in device memory
+otherwise. Its floor on the card is the bytes: read A and write L,
+``2 * B * m * m`` words.
 """
 
 import torch
 
-__all__ = ["cholesky", "cholesky_plain", "cholesky_cuda"]
+__all__ = ["cholesky", "cholesky_plain", "cholesky_cuda",
+           "cholesky_tiled_cuda"]
 
 # launches of the CUDA kernel in this process; only cholesky_cuda adds to
 # it (read and reset it as ``george_tpu_torch.ops.chol.chol_kernel_launches``)
 chol_kernel_launches = 0
+# launches of the tiled kernel; only cholesky_tiled_cuda adds to it
+chol_tile_kernel_launches = 0
 
 _TINY = 1e-30
 
@@ -57,43 +72,55 @@ def cholesky_plain(A):
     return L
 
 
-def _check(A):
+def _check(A, name):
     if not A.is_cuda:
-        raise ValueError("cholesky_cuda needs a CUDA tensor, got %s"
-                         % A.device)
+        raise ValueError("%s needs a CUDA tensor, got %s" % (name, A.device))
     if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError("cholesky_cuda takes float32 or float64, got %s"
-                        % A.dtype)
+        raise TypeError("%s takes float32 or float64, got %s"
+                        % (name, A.dtype))
     if A.ndim != 3 or A.shape[1] != A.shape[2]:
-        raise ValueError("cholesky_cuda takes square blocks (B, m, m), "
-                         "got shape %s" % (tuple(A.shape),))
+        raise ValueError("%s takes square blocks (B, m, m), got shape %s"
+                         % (name, tuple(A.shape)))
     if not A.is_contiguous():
-        raise ValueError("cholesky_cuda takes a contiguous tensor")
+        raise ValueError("%s takes a contiguous tensor" % name)
 
 
-def cholesky_cuda(A):
-    """Launch the CUDA kernel on ``A`` ``(B, m, m)`` (float32 or float64,
-    contiguous, on a CUDA device); raises on any launch error."""
-    global chol_kernel_launches
-    _check(A)
+def _launch(A, name, f32, f64):
+    _check(A, name)
     from ._build import load
 
     lib = load()
     L = torch.empty_like(A)
     B, m, _ = A.shape
     if B == 0 or m == 0:
-        return L
-    fn = lib.george_chol_f32 if A.dtype == torch.float32 else (
-        lib.george_chol_f64)
+        return L, False
+    fn = getattr(lib, f32 if A.dtype == torch.float32 else f64)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = fn(A.data_ptr(), L.data_ptr(), B, m, stream)
     if err != 0:
-        raise RuntimeError(
-            "chol kernel launch failed for (%d, %d) %s: cudaError %d"
-            % (B, m, A.dtype, err)
-        )
-    chol_kernel_launches += 1
+        raise RuntimeError("%s launch failed for (%d, %d) %s: cudaError %d"
+                           % (name, B, m, A.dtype, err))
+    return L, True
+
+
+def cholesky_cuda(A):
+    """Launch the CUDA kernel on ``A`` ``(B, m, m)`` (float32 or float64,
+    contiguous, on a CUDA device); raises on any launch error."""
+    global chol_kernel_launches
+    L, launched = _launch(A, "cholesky_cuda", "george_chol_f32",
+                          "george_chol_f64")
+    chol_kernel_launches += int(launched)
+    return L
+
+
+def cholesky_tiled_cuda(A):
+    """Launch the tiled kernel (one warp per block, several blocks per CTA)
+    on ``A`` ``(B, m, m)``; same contract as :func:`cholesky_cuda`."""
+    global chol_tile_kernel_launches
+    L, launched = _launch(A, "cholesky_tiled_cuda", "george_chol_tile_f32",
+                          "george_chol_tile_f64")
+    chol_tile_kernel_launches += int(launched)
     return L
 
 
@@ -105,6 +132,16 @@ def uses_shared_memory(m, dtype, device=None):
     size = torch.empty((), dtype=dtype).element_size()
     with torch.cuda.device(device):
         return bool(load().george_chol_uses_smem(int(m), size))
+
+
+def tile_blocks_per_cta(m, dtype, device=None):
+    """Blocks of order ``m`` per CTA in the tiled kernel's shared-memory
+    variant on ``device``; 0 means its device-memory variant."""
+    from ._build import load
+
+    size = torch.empty((), dtype=dtype).element_size()
+    with torch.cuda.device(device):
+        return int(load().george_chol_tile_blocks_per_cta(int(m), size))
 
 
 def _forward(A):

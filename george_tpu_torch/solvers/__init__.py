@@ -1,6 +1,7 @@
 # -*- coding: utf-8 -*-
-"""Solvers: exact (dense Cholesky), hierarchical (HODLR-class) and trivial
-(diagonal).
+"""Solvers: exact (dense Cholesky), hierarchical (HODLR-class),
+compact-support sparse (CG + SLQ, or the exact banded Cholesky on sorted
+1-D data) and trivial (diagonal).
 
 Protocol: ``compute(x, yerr, nns=None)``, ``apply_inverse(y)``,
 ``dot_solve(y)``, ``apply_forward(y, i)``, ``get_inverse()``,
@@ -10,5 +11,6 @@ Protocol: ``compute(x, yerr, nns=None)``, ``apply_inverse(y)``,
 from .trivial import TrivialSolver  # noqa: F401
 from .basic import BasicSolver  # noqa: F401
 from .hodlr import HODLRSolver  # noqa: F401
+from .sparse import SparseSolver  # noqa: F401
 
-__all__ = ["TrivialSolver", "BasicSolver", "HODLRSolver"]
+__all__ = ["TrivialSolver", "BasicSolver", "HODLRSolver", "SparseSolver"]

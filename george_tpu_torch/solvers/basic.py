@@ -15,11 +15,12 @@ class BasicSolver(object):
     """Dense exact solver with a Cholesky factorization of ``K + diag``.
 
     :param kernel: the covariance kernel.
-    :param device: torch device the factorization lives on (default CPU).
+    :param device: torch device the factorization lives on (default
+        ``"cuda"``; pass ``"cpu"`` explicitly on a host without a card).
     :param dtype: working dtype (default ``torch.float64``).
     """
 
-    def __init__(self, kernel, device="cpu", dtype=torch.float64,
+    def __init__(self, kernel, device="cuda", dtype=torch.float64,
                  **kwargs):
         self.kernel = kernel
         self.device = torch.device(device)

@@ -788,7 +788,8 @@ class HODLRSolver(object):
         theta) or ``"fps"`` (geometry only).
     :param refine_steps: refinement steps on every solve; ``"auto"`` is
         one step in float32 at n >= 2e5.
-    :param device: torch device the factorization lives on (default CPU).
+    :param device: torch device the factorization lives on (default
+        ``"cuda"``; pass ``"cpu"`` explicitly on a host without a card).
     :param dtype: working dtype (default ``torch.float64``).
 
     Not ported yet (they raise ``NotImplementedError``): ``sym=True``,
@@ -801,7 +802,7 @@ class HODLRSolver(object):
     def __init__(self, kernel, min_size=64, rank=None, tol=0.1,
                  tol_abs=None, seed=42, sort=True, debug=False, compute_grad=False, sym=False, knn=None,
                  grad_mode="exact", num_probes=16, mesh=None,
-                 pivots="aca", refine_steps="auto", device="cpu",
+                 pivots="aca", refine_steps="auto", device="cuda",
                  dtype=torch.float64, **kwargs):
         for flag, name in ((sym, "sym=True"), (mesh is not None, "mesh="),
                            (knn is not None, "knn="),

@@ -4,8 +4,10 @@
 On the CPU the port's ``cholesky`` runs ``cholesky_plain``, the plain
 torch version of the CUDA kernel's recurrence; it is held against the TPU
 kernel ``pallas_cholesky_blocked`` in Pallas interpret mode, at the cases
-and bounds of ``tests/test_ops.py``. The CUDA kernel itself runs only on a
-card (``test_cuda_kernel_matches_plain``, marked ``cuda``) and in
+and bounds of ``tests/test_ops.py``; ``cholesky_plain`` is also the plain
+version of the tiled one-warp-per-block kernel, and is held against the
+unblocked TPU kernel ``pallas_cholesky`` too. The CUDA
+kernels themselves run only on a card (the tests marked ``cuda``) and in
 ``chip_smoke.py``.
 
 JAX is imported inside the tests that use it, so that the ``cuda`` test
@@ -138,6 +140,62 @@ def test_cuda_kernel_matches_plain(B, m, dtype):
     L = tchol.cholesky_cuda(A)
     torch.cuda.synchronize()
     assert tchol.chol_kernel_launches == before + 1
+    L_ref = tchol.cholesky_plain(A)
+    tol = (1e-4 if dtype == torch.float32 else 1e-10) * float(
+        L_ref.abs().max())
+    assert float((L - L_ref).abs().max()) <= tol
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_tiled_plain_matches_pallas_cholesky(dtype):
+    """The tiled kernel's plain version against the unblocked TPU kernel at
+    its one caller's case (``tests/test_ops.py:39-46``, (8, 128),
+    ``block_tile=4``): 3e-5 max|L| in float32 (that test's bound), 1e-12
+    max|L| in float64."""
+    import jax.numpy as jnp
+    from george_tpu.ops.chol import pallas_cholesky
+
+    A = _spd_batch(np.random.default_rng(4), 8, 128, dtype=dtype)
+    L_ref = np.asarray(pallas_cholesky(jnp.asarray(A), block_tile=4,
+                                       interpret=True))
+    L = tchol.cholesky_plain(torch.as_tensor(A)).numpy()
+    assert L.dtype == dtype
+    tol = 3e-5 if dtype == np.float32 else 1e-12
+    assert np.allclose(L, L_ref, rtol=0, atol=tol * np.abs(L_ref).max())
+    assert np.array_equal(np.triu(L, 1), np.zeros_like(L))
+
+
+@pytest.mark.parametrize("bad", ["cpu", "ndim", "square", "dtype"])
+def test_tiled_cuda_wrapper_refuses_before_launch(bad):
+    A = torch.eye(4).expand(2, 4, 4).contiguous()
+    if bad == "ndim":
+        A = A[0]
+    elif bad == "square":
+        A = A[:, :, :3]
+    elif bad == "dtype":
+        A = A.half()
+    with pytest.raises((ValueError, TypeError)):
+        tchol.cholesky_tiled_cuda(A)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,dtype,per_cta", [(8, 128, torch.float32, 3),
+                                               (1024, 64, torch.float32, 8),
+                                               (16, 64, torch.float64, 6),
+                                               (4, 196, torch.float64, 0)])
+def test_cuda_tiled_kernel_matches_plain(B, m, dtype, per_cta):
+    """The tiled kernel against its plain version on the card: blocks in
+    shared memory (3, 8 and 6 per CTA) and in device memory (f64 m=196)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert tchol.tile_blocks_per_cta(m, dtype) == per_cta
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(0), B, m,
+                                   dtype=np.float64)).to("cuda", dtype)
+    before = tchol.chol_tile_kernel_launches
+    L = tchol.cholesky_tiled_cuda(A)
+    torch.cuda.synchronize()
+    assert tchol.chol_tile_kernel_launches == before + 1
     L_ref = tchol.cholesky_plain(A)
     tol = (1e-4 if dtype == torch.float32 else 1e-10) * float(
         L_ref.abs().max())
