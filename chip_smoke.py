@@ -20,10 +20,12 @@ Phases:
    ``nvcc`` per source, all at once);
 3. kernels, each against its plain torch version on the card, with its
    time beside the plain version's, a library call's and the card's bound:
-   the leaf Cholesky (both variants), the DIA matvec (f32 r = 1, 16, 17
-   and 40 and f64 r = 4 on the bench_dia value table, a ragged n, the
-   device-memory variant) and the tiled Cholesky (shared and device memory, a
-   near-singular batch);
+   the leaf Cholesky (every variant of its launch plan; timed at (512,
+   196) f32 and f64 and (2048, 489) f32, the leaves at n = 1e5 and 1e6),
+   the DIA matvec (f32 r = 1, 16, 17 and 40 and f64 r = 4 on the bench_dia
+   value table, a ragged n, the device-memory variant) and the tiled
+   Cholesky (one many-warp block per CTA and eight blocks per CTA, a
+   near-singular batch; timed at (8, 128) and (1024, 64) f32);
 4. HODLR slice, float32: ``GP.compute`` + ``log_likelihood`` and the
    Hutchinson likelihood + gradient, both against the float64 truth anchor,
    the time per evaluation and the leaf kernel's launch count; then, outside
@@ -213,60 +215,122 @@ def _spd(B, m, dtype, jitter=1.0, seed=0):
     return A.to(dtype).contiguous()
 
 
+def _check_chol(fn, counter, A, tol, label):
+    """One launch of a Cholesky entry point against the plain version in
+    the kernel's order of operations; returns max|dL|."""
+    import torch
+    from george_tpu_torch.ops import chol
+
+    before = getattr(chol, counter)
+    L = fn(A)
+    torch.cuda.synchronize()
+    if getattr(chol, counter) != before + 1:
+        raise RuntimeError("%s: launch counter did not rise" % counter)
+    L_ref = chol.cholesky_plain(A, panel=chol.PANEL)
+    torch.cuda.synchronize()
+    err = float((L - L_ref).abs().max())
+    scale = float(L_ref.abs().max())
+    upper = bool((torch.triu(L, 1) == 0).all())
+    log("%s: max|dL| %.3e = %.3e max|L| (limit %.0e), upper zero %s"
+        % (label, err, err / scale, tol, upper))
+    if not (err <= tol * scale and upper and bool(torch.isfinite(L).all())):
+        raise RuntimeError("%s disagrees with plain" % label)
+    return err
+
+
+def _near_singular(fn, label):
+    import torch
+
+    A = _spd(4, 128, torch.float32, jitter=1e-4, seed=5)
+    L = fn(A)
+    torch.cuda.synchronize()
+    rec = float((L @ L.mT - A).abs().max())
+    log("%s near-singular (4, 128) f32: finite %s, max|LL^T - A| %.3e"
+        % (label, bool(torch.isfinite(L).all()), rec))
+    if not (bool(torch.isfinite(L).all()) and rec <= 5e-4):
+        raise RuntimeError("%s near-singular batch failed" % label)
+
+
+def device_ms(fn, calls=10):
+    """Milliseconds of device work per call of ``fn`` under
+    ``torch.profiler``: the summed duration of the kernels and copies it
+    launches, without the host's share that a pair of CUDA events around
+    one call also counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
+
+
+def _time_chol(fn, A, plain_runs=21):
+    """Kernel, plain and library times and the bound at ``A``'s shape; the
+    kernel's and the library's device time per call beside them."""
+    import torch
+    from george_tpu_torch.ops import chol
+
+    B, m, _ = A.shape
+    t = {"ms": cuda_ms(lambda: fn(A)),
+         "plain_ms": cuda_ms(lambda: chol.cholesky_plain(A, panel=chol.PANEL),
+                             warmup=1, runs=plain_runs),
+         "plain_runs": plain_runs,
+         "library_ms": cuda_ms(lambda: torch.linalg.cholesky(A)),
+         "device_ms": device_ms(lambda: fn(A)),
+         "library_device_ms": device_ms(lambda: torch.linalg.cholesky(A))}
+    t["bound_ms"], t["bound_by"] = bound(chol_bytes(B, m, A.element_size()),
+                                         B * m ** 3 / 3.0, A.dtype)
+    return t
+
+
 def phase_kernel():
     import torch
     from george_tpu_torch.ops import chol
 
     out = {}
-    cases = [(512, 196, torch.float32, True, 1e-4),
-             (64, 489, torch.float32, False, 1e-4),
-             (16, 196, torch.float64, False, 1e-10)]
-    for B, m, dtype, smem, tol in cases:
-        uses = chol.uses_shared_memory(m, dtype)
-        if uses != smem:
+    # (B, m, dtype, variant of the leaf plan, tolerance of max|L|, timed)
+    cases = [(512, 196, torch.float32, "shared", 1e-4, True),
+             (512, 196, torch.float64, "shared", 1e-10, True),
+             (2048, 489, torch.float32, "device", 1e-4, True),
+             (64, 489, torch.float32, "device", 1e-4, False),
+             (16, 196, torch.float64, "shared", 1e-10, False),
+             (2, 1900, torch.float32, "device-panel", 1e-4, False)]
+    for B, m, dtype, variant, tol, timed in cases:
+        plan = chol.launch_plan(B, m, dtype)
+        if plan.variant != variant:
             raise RuntimeError("(%d, %s) takes the %s variant, expected %s"
-                               % (m, dtype, uses, smem))
+                               % (m, dtype, plan.variant, variant))
         A = _spd(B, m, dtype)
-        before = chol.chol_kernel_launches
-        L = chol.cholesky_cuda(A)
-        torch.cuda.synchronize()
-        if chol.chol_kernel_launches != before + 1:
-            raise RuntimeError("launch counter did not rise")
-        L_ref = chol.cholesky_plain(A)
-        torch.cuda.synchronize()
-        err = float((L - L_ref).abs().max())
-        scale = float(L_ref.abs().max())
-        upper = bool((torch.triu(L, 1) == 0).all())
-        log("kernel (%d, %d) %s [%s]: max|dL| %.3e = %.3e max|L| "
-            "(limit %.0e), upper zero %s"
-            % (B, m, str(dtype).split(".")[-1],
-               "shared" if smem else "device", err, err / scale, tol,
-               upper))
-        if not (err <= tol * scale and upper and bool(torch.isfinite(L).all())):
-            raise RuntimeError("kernel disagrees with plain at (%d, %d) %s"
-                               % (B, m, dtype))
-        if (B, m, dtype) == (512, 196, torch.float32):
-            out["max_abs_err"] = err
-    A = _spd(4, 128, torch.float32, jitter=1e-4, seed=5)
-    L = chol.cholesky_cuda(A)
-    torch.cuda.synchronize()
-    rec = float((L @ L.mT - A).abs().max())
-    log("kernel near-singular (4, 128) f32: finite %s, max|LL^T - A| %.3e"
-        % (bool(torch.isfinite(L).all()), rec))
-    if not (bool(torch.isfinite(L).all()) and rec <= 5e-4):
-        raise RuntimeError("near-singular batch failed")
-
-    A = _spd(512, 196, torch.float32)
-    out["ms"] = cuda_ms(lambda: chol.cholesky_cuda(A))
-    out["plain_ms"] = cuda_ms(lambda: chol.cholesky_plain(A))
-    out["cusolver_ms"] = cuda_ms(lambda: torch.linalg.cholesky(A))
-    out["library_ms"] = out["cusolver_ms"]
-    out["bound_ms"], out["bound_by"] = bound(chol_bytes(512, 196, 4),
-                                             512 * 196 ** 3 / 3.0, A.dtype)
-    log("kernel time (512, 196) f32, median of 21: kernel %.4f ms, plain "
-        "%.4f ms, torch.linalg.cholesky %.4f ms, bound %.4f ms (%s)"
-        % (out["ms"], out["plain_ms"], out["cusolver_ms"], out["bound_ms"],
-           out["bound_by"]))
+        name = "%dx%d_%s" % (B, m, str(dtype).split(".")[-1])
+        err = _check_chol(chol.cholesky_cuda, "chol_kernel_launches", A, tol,
+                          "kernel (%d, %d) %s [%s, %d threads]"
+                          % (B, m, name.split("_")[1], variant,
+                             plan.group_threads))
+        if timed:
+            t = _time_chol(chol.cholesky_cuda, A,
+                           plain_runs=5 if m > 256 else 21)
+            t["max_abs_err"] = err
+            t["plan"] = plan._asdict()
+            out[name] = t
+            log("kernel time (%d, %d) %s, median of 21: kernel %.4f ms, "
+                "plain %.4f ms (median of %d), torch.linalg.cholesky %.4f ms,"
+                " bound %.4f ms (%s); device time per call (profiler): "
+                "kernel %s ms, library %s ms"
+                % (B, m, name.split("_")[1], t["ms"], t["plain_ms"],
+                   t["plain_runs"], t["library_ms"], t["bound_ms"],
+                   t["bound_by"], t["device_ms"], t["library_device_ms"]))
+        del A
+    _near_singular(chol.cholesky_cuda, "kernel")
+    out.update(out["512x196_float32"])
+    out["cusolver_ms"] = out["library_ms"]
     return out
 
 
@@ -660,59 +724,38 @@ def phase_kernel_tiled():
     from george_tpu_torch.ops import chol
 
     out = {}
-    cases = [(8, 128, torch.float32, 3, 1e-4), (1024, 64, torch.float32, 8,
-                                                 1e-4),
-             (16, 64, torch.float64, 6, 1e-10),
-             (4, 196, torch.float64, 0, 1e-10)]
+    # (B, m, dtype, blocks per CTA of the tiled plan, tolerance)
+    cases = [(8, 128, torch.float32, 1, 1e-4),
+             (1024, 64, torch.float32, 8, 1e-4),
+             (16, 64, torch.float64, 1, 1e-10),
+             (4, 196, torch.float64, 1, 1e-10)]
     for B, m, dtype, per_cta, tol in cases:
-        got = chol.tile_blocks_per_cta(m, dtype)
-        if got != per_cta:
-            raise RuntimeError("tiled (%d, %s): %d blocks per CTA, expected "
-                               "%d" % (m, dtype, got, per_cta))
+        plan = chol.launch_plan(B, m, dtype, tiled=True)
+        if plan.blocks_per_cta != per_cta:
+            raise RuntimeError("tiled (%d, %d, %s): %d blocks per CTA, "
+                               "expected %d" % (B, m, dtype,
+                                                plan.blocks_per_cta, per_cta))
         A = _spd(B, m, dtype)
-        before = chol.chol_tile_kernel_launches
-        L = chol.cholesky_tiled_cuda(A)
-        torch.cuda.synchronize()
-        if chol.chol_tile_kernel_launches != before + 1:
-            raise RuntimeError("tiled launch counter did not rise")
-        L_ref = chol.cholesky_plain(A)
-        err = float((L - L_ref).abs().max())
-        scale = float(L_ref.abs().max())
-        upper = bool((torch.triu(L, 1) == 0).all())
-        log("kernel tiled (%d, %d) %s [%s]: max|dL| %.3e = %.3e max|L| "
-            "(limit %.0e), upper zero %s"
-            % (B, m, str(dtype).split(".")[-1],
-               "%d per CTA" % per_cta if per_cta else "device", err,
-               err / scale, tol, upper))
-        if not (err <= tol * scale and upper
-                and bool(torch.isfinite(L).all())):
-            raise RuntimeError("tiled kernel disagrees with plain at (%d, %d)"
-                               " %s" % (B, m, dtype))
-        out["err_%d_%d_%s" % (B, m, str(dtype).split(".")[-1])] = err
-    A = _spd(4, 128, torch.float32, jitter=1e-4, seed=5)
-    L = chol.cholesky_tiled_cuda(A)
-    torch.cuda.synchronize()
-    rec = float((L @ L.mT - A).abs().max())
-    log("kernel tiled near-singular (4, 128) f32: finite %s, max|LL^T - A| "
-        "%.3e" % (bool(torch.isfinite(L).all()), rec))
-    if not (bool(torch.isfinite(L).all()) and rec <= 5e-4):
-        raise RuntimeError("tiled near-singular batch failed")
+        out["err_%d_%d_%s" % (B, m, str(dtype).split(".")[-1])] = _check_chol(
+            chol.cholesky_tiled_cuda, "chol_tile_kernel_launches", A, tol,
+            "kernel tiled (%d, %d) %s [%s, %d per CTA, %d threads each]"
+            % (B, m, str(dtype).split(".")[-1], plan.variant, per_cta,
+               plan.group_threads))
+    _near_singular(chol.cholesky_tiled_cuda, "kernel tiled")
 
     for B, m in ((8, 128), (1024, 64)):
         A = _spd(B, m, torch.float32)
         chol.chol_tile_kernel_launches = 0
-        t = {"ms": cuda_ms(lambda: chol.cholesky_tiled_cuda(A))}
+        t = _time_chol(chol.cholesky_tiled_cuda, A)
         t["launches"] = chol.chol_tile_kernel_launches
-        t["plain_ms"] = cuda_ms(lambda: chol.cholesky_plain(A))
-        t["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky(A))
-        t["bound_ms"], t["bound_by"] = bound(chol_bytes(B, m, 4),
-                                             B * m ** 3 / 3.0, A.dtype)
         t["max_abs_err"] = out["err_%d_%d_float32" % (B, m)]
         out["%dx%d" % (B, m)] = t
         log("kernel tiled time (%d, %d) f32, median of 21: kernel %.4f ms, "
             "plain %.4f ms, torch.linalg.cholesky %.4f ms, bound %.4f ms "
-            "(%s)" % (B, m, t["ms"], t["plain_ms"], t["library_ms"],
-                      t["bound_ms"], t["bound_by"]))
+            "(%s); device time per call (profiler): kernel %s ms, library "
+            "%s ms" % (B, m, t["ms"], t["plain_ms"], t["library_ms"],
+                       t["bound_ms"], t["bound_by"], t["device_ms"],
+                       t["library_device_ms"]))
     return out
 
 
@@ -896,9 +939,9 @@ def main():
 
     chol.chol_kernel_launches = 0
     f64 = phase_slice_f64(device, N_MAIN)
-    log("slice f64: leaf Cholesky kernel launches %d"
-        % chol.chol_kernel_launches)
-    if chol.chol_kernel_launches == 0:
+    launches_f64 = chol.chol_kernel_launches
+    log("slice f64: leaf Cholesky kernel launches %d" % launches_f64)
+    if launches_f64 == 0:
         raise RuntimeError("the f64 path never launched the leaf kernel")
     del evaluate, thetas, args
     torch.cuda.empty_cache()
@@ -925,11 +968,17 @@ def main():
 
     log(json.dumps({"summary": {
         "build_s": build_s, "cusolver_ms": kern["cusolver_ms"],
+        "leaf_kernel": {k: v for k, v in kern.items() if "x" in k},
         "f32": f32, "f64": f64, "dia_kernel": kdia, "tiled_kernel": tile,
         "sparse_direct": direct, "sparse_iterative": it,
         "sparse_ell_2d": ell}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
-    t = tile["1024x64"]
+    # the tiled kernel's line leads with its worst shape against the library
+    t, t2 = sorted((tile["8x128"], tile["1024x64"]),
+                   key=lambda v: -v["ms"] / v["library_ms"])
+    shapes = {id(tile["8x128"]): "(8, 128) f32",
+              id(tile["1024x64"]): "(1024, 64) f32"}
+    k64, k489 = kern["512x196_float64"], kern["2048x489_float32"]
     print(json.dumps({"kernels": [
         {"name": "leaf_cholesky", "route": "cuda",
          "source": "george_tpu_torch/csrc/chol.cu",
@@ -938,7 +987,17 @@ def main():
          "ms": kern["ms"], "plain_ms": kern["plain_ms"],
          "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
          "library_ms": kern["library_ms"],
-         "shape": "(512, 196) f32", "launches_in": "HODLR f32 main path"},
+         "shape": "(512, 196) f32", "launches_in": "HODLR f32 main path",
+         "ms_512x196_f64": k64["ms"], "plain_ms_512x196_f64": k64["plain_ms"],
+         "bound_ms_512x196_f64": k64["bound_ms"],
+         "library_ms_512x196_f64": k64["library_ms"],
+         "max_abs_err_512x196_f64": k64["max_abs_err"],
+         "launches_f64_path": launches_f64,
+         "ms_2048x489_f32": k489["ms"],
+         "plain_ms_2048x489_f32": k489["plain_ms"],
+         "bound_ms_2048x489_f32": k489["bound_ms"],
+         "library_ms_2048x489_f32": k489["library_ms"],
+         "max_abs_err_2048x489_f32": k489["max_abs_err"]},
         {"name": "dia_matvec", "route": "cuda",
          "source": "george_tpu_torch/csrc/dia.cu",
          "replaces": "george_tpu/ops/dia.py:96",
@@ -960,7 +1019,11 @@ def main():
          "launches": t["launches"], "max_abs_err": t["max_abs_err"],
          "ms": t["ms"], "plain_ms": t["plain_ms"],
          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": t["library_ms"], "shape": "(1024, 64) f32",
+         "library_ms": t["library_ms"], "shape": shapes[id(t)],
+         "other_shape": shapes[id(t2)], "ms_other": t2["ms"],
+         "plain_ms_other": t2["plain_ms"], "bound_ms_other": t2["bound_ms"],
+         "library_ms_other": t2["library_ms"],
+         "max_abs_err_other": t2["max_abs_err"],
          "launches_in": "its kernel phase's timed launches (on no solver "
                         "path)"},
     ]}))

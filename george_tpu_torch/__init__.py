@@ -11,9 +11,9 @@ Two paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
   layout, and the exact block-tridiagonal Cholesky on sorted 1-D data;
 
 with the dense and trivial solvers and the ``GP`` object. The kernels on
-CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``: the leaf
-Cholesky, its tiled one-warp-per-block variant, the DIA matvec), built from
-source at first use.
+CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``: the
+panel-blocked leaf Cholesky and its tiled launch plan, the DIA matvec),
+built from source at first use.
 
 The package imports ``torch``, ``numpy`` and ``scipy`` only — never JAX or
 the JAX package. The solvers and the GP take ``device=`` (default

@@ -123,13 +123,15 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # A, L, scratch, B, m, then the launch plan (variant, threads per
+        # block, blocks per CTA, shared bytes), then the stream
+        chol_plan = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         signatures = {
-            "george_chol_f32": [ptr, ptr, i32, i32, ptr],
-            "george_chol_f64": [ptr, ptr, i32, i32, ptr],
-            "george_chol_uses_smem": [i32, i32],
-            "george_chol_tile_f32": [ptr, ptr, i32, i32, ptr],
-            "george_chol_tile_f64": [ptr, ptr, i32, i32, ptr],
-            "george_chol_tile_blocks_per_cta": [i32, i32],
+            "george_chol_f32": chol_plan,
+            "george_chol_f64": chol_plan,
+            "george_chol_tile_f32": chol_plan,
+            "george_chol_tile_f64": chol_plan,
+            "george_chol_device_limits": [ptr],
             "george_dia_f32": [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr],
             "george_dia_f64": [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr],
             "george_dia_uses_smem": [i32, i32, i32],
