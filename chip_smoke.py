@@ -22,8 +22,11 @@ Phases:
    time beside the plain version's, a library call's and the card's bound:
    the leaf Cholesky (every variant of its launch plan; timed at (512,
    196) f32 and f64 and (2048, 489) f32, the leaves at n = 1e5 and 1e6),
-   the DIA matvec (f32 r = 1, 16, 17 and 40 and f64 r = 4 on the bench_dia
-   value table, a ragged n, the device-memory variant) and the tiled
+   the DIA matvec (a small table first; f32 r = 1, 16, 17 and 40 and f64
+   r = 4 on the bench_dia value table, a ragged n, an upper band, the
+   device-memory variant; timed at r = 1, 16 and 17 through
+   ``dia_matvec_cuda`` and through the solver's prepared apply, with the
+   profiler's device time per call and the launch plan) and the tiled
    Cholesky (one many-warp block per CTA and eight blocks per CTA, a
    near-singular batch; timed at (8, 128) and (1024, 64) f32);
 4. HODLR slice, float32: ``GP.compute`` + ``log_likelihood`` and the
@@ -188,18 +191,33 @@ def phase_build():
     log("build: %.2f s -> %s" % (seconds, os.path.relpath(path, HERE)))
     # ptxas -v: one "Compiling entry function" line per kernel, then its
     # spills and its registers; print the range, and any kernel that spills
-    regs, name = {}, None
+    regs, spills, name = {}, {}, None
     for line in compiler_log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "Used" in line and "registers" in line and name:
             regs[name] = int(line.split("Used")[1].split()[0])
-        elif "spill" in line and name and any(
-                int(v) for v in re.findall(r"(\d+) bytes spill", line)):
-            log("  ptxas spills: %s %s" % (name, line.strip()))
+        elif "spill" in line and name:
+            spills[name] = sum(
+                int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            if spills[name]:
+                log("  ptxas spills: %s %s" % (name, line.strip()))
     if regs:
         log("  ptxas: %d kernels, %d-%d registers"
             % (len(regs), min(regs.values()), max(regs.values())))
+    # the DIA kernel's instantiations, by their template arguments
+    for name in sorted(regs):
+        m = re.search(r"dia_stream_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E",
+                      name)
+        if m:
+            log("  dia_stream_kernel<%s, R=%s, C=%s, NSEG=%s>: %d registers, "
+                "%d bytes of spills"
+                % ("float" if m.group(1) == "f" else "double", m.group(2),
+                   m.group(3), m.group(4), regs[name], spills.get(name, 0)))
+        elif "dia_device_kernel" in name:
+            log("  dia_device_kernel<%s>: %d registers, %d bytes of spills"
+                % ("float" if "IfE" in name else "double", regs[name],
+                   spills.get(name, 0)))
     return seconds
 
 
@@ -270,6 +288,25 @@ def device_ms(fn, calls=10):
     if not dev:
         return None
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
+
+
+def device_ms_or_events(fn, calls=20):
+    """``device_ms``, or where the profiler saw no device event the time of
+    ``calls`` back-to-back launches between one pair of CUDA events, per
+    call (the host's share hides behind the device's)."""
+    import torch
+
+    ms = device_ms(fn, calls=calls)
+    if ms is not None:
+        return ms
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
 
 
 def _time_chol(fn, A, plain_runs=21):
@@ -644,6 +681,12 @@ def phase_kernel_dia(x, y_mv, kernel):
     import torch
     from george_tpu_torch.ops import dia
 
+    # a small table first: a pipeline that stalls shows here
+    for r in (1, 16):
+        sv, sd, sy = _random_band(5000, tuple(range(-150, 151)), r,
+                                  torch.float32, 4)
+        _check_dia("small n=5000 D=301 r=%d f32" % r, sv,
+                   tuple(range(-150, 151)), sd, sy, 1e-5)
     t0 = time.perf_counter()
     offsets, vals, mask, nnz = dia_table(x, kernel,
                                          (torch.float32, torch.float64))
@@ -670,10 +713,14 @@ def phase_kernel_dia(x, y_mv, kernel):
                 dtype) * 2 - 1
         else:
             y = torch.randn((n, r), generator=g, device="cuda", dtype=dtype)
-        if not dia.uses_shared_memory(D, r, dtype):
-            raise RuntimeError("the bench band should take the shared-memory"
-                               " variant")
-        res, err = _check_dia("bench n=%d D=%d r=%d %s [shared]"
+        plan = dia.launch_plan(n, D, r, dtype)
+        if plan.variant != "stream" or not dia.uses_shared_memory(D, r,
+                                                                  dtype):
+            raise RuntimeError("the bench band should take the streaming "
+                               "variant")
+        log("kernel dia plan r=%d %s: %s"
+            % (r, str(dtype).split(".")[-1], json.dumps(plan._asdict())))
+        res, err = _check_dia("bench n=%d D=%d r=%d %s [stream]"
                               % (n, D, r, str(dtype).split(".")[-1]),
                               v, offsets, diag, y, tol)
         cases[(dtype, r)] = (v, diag, y, res, err)
@@ -689,8 +736,14 @@ def phase_kernel_dia(x, y_mv, kernel):
     wv, wd, wy = _random_band(50_000, wide, 32, torch.float32, 3)
     _check_dia("n=50000 D=%d r=32 f32 [device memory]" % len(wide), wv,
                wide, wd, wy, 1e-5)
-    del rv, rd, ry, wv, wd, wy, cases[(torch.float32, 40)]
+    sv, sd, sy = _random_band(700, tuple(range(2, 9)), 17, torch.float32, 5)
+    _check_dia("upper band n=700 d_min=2 D=7 r=17 f32", sv,
+               tuple(range(2, 9)), sd, sy, 1e-5)
+    del rv, rd, ry, wv, wd, wy, sv, sd, sy, cases[(torch.float32, 40)]
 
+    # the prepared apply the solver keeps for the band: same kernel, the
+    # checks that cannot change between calls made once
+    op = dia.DiaOperator(offsets, n)
     for r in (1, 16, 17):
         v, diag, y, res, err = cases[(torch.float32, r)]
         A = _csr_of_band(v, offsets, mask, diag)
@@ -699,23 +752,57 @@ def phase_kernel_dia(x, y_mv, kernel):
         if lib_err > 1e-4:
             raise RuntimeError("the CSR yardstick computes another function "
                                "(rel %.3e)" % lib_err)
-        t = {"max_abs_err": err,
-             "ms": cuda_ms(lambda: dia.dia_matvec_cuda(v, offsets, diag, y)),
+        before = dia.dia_kernel_launches
+        same = op(v, diag, y)
+        if dia.dia_kernel_launches != before + 1 or not torch.equal(same,
+                                                                    res):
+            raise RuntimeError("the prepared apply is not the kernel's "
+                               "launch")
+
+        def kernel_call():
+            return dia.dia_matvec_cuda(v, offsets, diag, y)
+
+        def library_call():
+            return A @ y
+
+        # kernel, library, library, kernel: the two one-call event times
+        # that are compared come from interleaved measurements
+        ms_a = cuda_ms(kernel_call)
+        lib_a = cuda_ms(library_call)
+        lib_b = cuda_ms(library_call)
+        ms_b = cuda_ms(kernel_call)
+        t = {"max_abs_err": err, "ms": 0.5 * (ms_a + ms_b),
+             "ms_runs": [ms_a, ms_b],
+             "operator_ms": cuda_ms(lambda: op(v, diag, y)),
              "plain_ms": cuda_ms(
                  lambda: dia.dia_matvec_plain(v, offsets, diag, y)),
-             "library_ms": cuda_ms(lambda: A @ y)}
+             "library_ms": 0.5 * (lib_a + lib_b),
+             "library_ms_runs": [lib_a, lib_b],
+             "device_ms": device_ms_or_events(kernel_call),
+             "library_device_ms": device_ms_or_events(library_call)}
+        t["wrapper_ms"] = t["operator_ms"] - t["device_ms"]
         t["bound_ms"], t["bound_by"] = bound(
             v.element_size() * (n * D + n + 2 * n * r),
             2.0 * n * (D + 1) * r, v.dtype)
-        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t["share_of_bound"] = t["bound_ms"] / t["device_ms"]
         out["r%d" % r] = t
-        log("kernel dia time n=%d D=%d r=%d f32, median of 21: kernel %.4f "
-            "ms, plain %.4f ms, cuSPARSE CSR (nnz %d) %.4f ms, bound %.4f ms "
-            "(%s), %.1f%% of bound" % (n, D, r, t["ms"], t["plain_ms"],
-                                       A.values().numel(), t["library_ms"],
-                                       t["bound_ms"], t["bound_by"],
-                                       100 * t["share_of_bound"]))
+        log("kernel dia time n=%d D=%d r=%d f32, one call between two "
+            "events, median of 21: dia_matvec_cuda %.4f ms (%.4f, %.4f), the "
+            "solver's prepared apply %.4f ms, plain %.4f ms, cuSPARSE CSR "
+            "(nnz %d) %.4f ms (%.4f, %.4f), bound %.4f ms (%s); device time "
+            "per call (profiler): kernel %.4f ms = %.1f%% of bound, cuSPARSE "
+            "%.4f ms; prepared apply minus device time %.4f ms"
+            % (n, D, r, t["ms"], ms_a, ms_b, t["operator_ms"], t["plain_ms"],
+               A.values().numel(), t["library_ms"], lib_a, lib_b,
+               t["bound_ms"], t["bound_by"], t["device_ms"],
+               100 * t["share_of_bound"], t["library_device_ms"],
+               t["wrapper_ms"]))
         del A, lib
+    r1 = out["r1"]
+    log("kernel dia r=1 against cuSPARSE CSR, one-call event times: %.4f ms "
+        "against %.4f ms (%s)" % (r1["ms"], r1["library_ms"],
+                                  "no greater" if r1["ms"] <= r1["library_ms"]
+                                  else "GREATER"))
     return out
 
 
@@ -1005,10 +1092,14 @@ def main():
          "ms": r1["ms"], "plain_ms": r1["plain_ms"],
          "bound_ms": r1["bound_ms"], "bound_by": r1["bound_by"],
          "library_ms": r1["library_ms"],
+         "device_ms": r1["device_ms"], "operator_ms": r1["operator_ms"],
+         "library_device_ms": r1["library_device_ms"],
          "shape": "n=%d D=%d r=1 f32" % (kdia["n"], kdia["D"]),
          "ms_r16": r16["ms"], "plain_ms_r16": r16["plain_ms"],
          "bound_ms_r16": r16["bound_ms"], "library_ms_r16": r16["library_ms"],
          "max_abs_err_r16": r16["max_abs_err"],
+         "device_ms_r16": r16["device_ms"],
+         "device_ms_r17": r17["device_ms"],
          "ms_r17": r17["ms"], "plain_ms_r17": r17["plain_ms"],
          "bound_ms_r17": r17["bound_ms"], "library_ms_r17": r17["library_ms"],
          "max_abs_err_r17": r17["max_abs_err"],

@@ -126,15 +126,18 @@ def load():
         # A, L, scratch, B, m, then the launch plan (variant, threads per
         # block, blocks per CTA, shared bytes), then the stream
         chol_plan = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        dia_plan = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr]
         signatures = {
             "george_chol_f32": chol_plan,
             "george_chol_f64": chol_plan,
             "george_chol_tile_f32": chol_plan,
             "george_chol_tile_f64": chol_plan,
             "george_chol_device_limits": [ptr],
-            "george_dia_f32": [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr],
-            "george_dia_f64": [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr],
-            "george_dia_uses_smem": [i32, i32, i32],
+            # vals, diag, y, out, n, D, d_min, r, the launch plan (18 ints,
+            # ops/dia.py::_plan_words), the stream
+            "george_dia_f32": dia_plan,
+            "george_dia_f64": dia_plan,
+            "george_dia_prepare": [],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -32,7 +32,7 @@ import torch
 from ..neighbors import (
     knn_matrix_to_csr, normalize_nns, radius_neighbors_csr,
 )
-from ..ops.dia import dia_matvec
+from ..ops.dia import DiaOperator, dia_matvec
 from .banded import (
     band_block_size, band_blocks, banded_cholesky, banded_loglike_fn,
     banded_solve, banded_sqrt_matvec,
@@ -356,10 +356,14 @@ class SparseSolver(object):
         self.nnz = int(row_ptr[-1])
         band = banded_offsets(nbr_idx, row_ptr)
         self._dia_offsets = None
+        self._dia = None
         if band is not None:
             offsets, lo_rows, hi_rows = band
             nbr_np, mask_np = banded_ell_tables(offsets, lo_rows, hi_rows, n)
             self._dia_offsets = offsets
+            # the band is known once: every later apply goes through this
+            # operator, which keeps (d_min, D) and the kernel's launch plans
+            self._dia = DiaOperator(offsets, n)
         else:
             nbr_np, mask_np = ell_from_csr(nbr_idx, row_ptr)
         self._x = self._tensor(x)
@@ -428,8 +432,8 @@ class SparseSolver(object):
                           self._mask)
 
     def _apply(self, vals, Y, diag):
-        if self._dia_offsets is not None:
-            return dia_apply(vals, self._dia_offsets, diag, Y)
+        if self._dia is not None:
+            return self._dia(vals, diag, Y)
         return ell_apply(vals, self._nbr, diag, Y)
 
     def _apply_fixed(self, Y):
@@ -578,7 +582,7 @@ class SparseSolver(object):
     def __getstate__(self):
         state = self.__dict__.copy()
         for k in ("_x", "_nbr", "_mask", "_diag", "_theta", "_vals",
-                  "_pdiag", "_direct_loglike", "_band_factors"):
+                  "_pdiag", "_direct_loglike", "_band_factors", "_dia"):
             state.pop(k, None)
         state["computed"] = False
         return state

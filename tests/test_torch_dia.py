@@ -6,7 +6,10 @@ torch version of the CUDA kernel; it is held against the TPU kernel
 ``dia_matvec_pallas`` in Pallas interpret mode and against ``dia_apply``,
 at the recipe and bound of ``tests/test_ops.py`` (n=700, D=11, ragged row
 blocks, vector and 4-column right-hand sides, 1e-12), on symmetric and
-asymmetric bands. The CUDA kernel itself runs only on a card
+asymmetric bands. The kernel's launch plan is computed in Python
+(``launch_plan``) and held here against the H100's limits at the shapes the
+solver paths and ``chip_smoke.py`` use. The CUDA kernel itself runs only on
+a card
 (``test_cuda_kernel_matches_plain``, marked ``cuda``) and in
 ``chip_smoke.py``::
 
@@ -110,22 +113,202 @@ def test_cuda_wrapper_refuses_before_launch(bad):
         tdia.dia_matvec_cuda(vals, (-1, 0, 1), diag, y)
 
 
+# (n, D, r, dtype, variant): the bench band at the paths' column counts,
+# chip_smoke's ragged and wide cases, a small first case, n below one tile
+PLAN_SHAPES = [
+    (200_000, 301, 1, torch.float32, "stream"),
+    (200_000, 301, 16, torch.float32, "stream"),
+    (200_000, 301, 17, torch.float32, "stream"),
+    (200_000, 301, 40, torch.float32, "stream"),
+    (200_000, 301, 4, torch.float64, "stream"),
+    (200_000, 301, 1, torch.float64, "stream"),
+    (200_037, 301, 17, torch.float32, "stream"),
+    (50_000, 2001, 32, torch.float32, "device"),
+    (5000, 301, 1, torch.float32, "stream"),
+    (700, 7, 4, torch.float64, "stream"),
+    (19, 11, 3, torch.float32, "stream"),
+    (3, 1, 1, torch.float32, "stream"),
+]
+
+
+@pytest.mark.parametrize("n,D,r,dtype,variant", PLAN_SHAPES)
+def test_launch_plan_fits_the_h100(n, D, r, dtype, variant):
+    """The plan, computed on the CPU from the H100's limits: the variant,
+    shared memory within the card's, 16-byte stages and offsets (what the
+    bulk copies need), tile rows that keep every tile aligned, threads that
+    match the kernel's layout, column groups that cover ``r``."""
+    plan = tdia.launch_plan(n, D, r, dtype, limits=tdia.H100)
+    assert plan.variant == variant
+    assert tdia.uses_shared_memory(D, r, dtype, limits=tdia.H100) == (
+        variant == "stream")
+    assert plan.grid >= 1 and plan.threads >= 32
+    if variant == "device":
+        assert plan.smem_bytes == 0 and plan.grid == -(-n // 128)
+        return
+    size = dtype.itemsize
+    assert plan.smem_bytes <= 232_448
+    assert plan.ctas_per_sm * (plan.smem_bytes + 1024) <= 233_472
+    assert plan.stage_bytes == plan.tile_rows * D * size
+    for value in (plan.stage_bytes, plan.win_off, plan.ring_off):
+        assert value % 16 == 0
+    assert plan.tile_rows % (16 // size) == 0
+    assert plan.tile_rows % plan.row_tile == 0
+    assert 2 <= plan.stages <= 8
+    assert plan.ring_off + plan.stages * plan.stage_bytes == plan.smem_bytes
+    rows = plan.tiles_per_item * plan.tile_rows
+    window = (rows + D - 1) * plan.win_stride * size
+    assert plan.win_off + window <= plan.ring_off
+    # column groups cover r, in whole 16-byte loads when there are several
+    assert plan.groups * plan.passes * plan.col_tile >= r
+    assert plan.win_stride >= -(-r // plan.col_tile) * plan.col_tile
+    if r > 1:
+        assert (plan.col_tile * size) % 16 == 0
+        assert (plan.win_stride * size) % 16 == 0
+    assert (r == 1) == (plan.row_tile == 1 and plan.col_tile == 1)
+    # band segments cover D; one thread per (segment, group, row group)
+    assert plan.segments * plan.seg_len >= D
+    assert plan.threads == (plan.segments * plan.groups
+                            * plan.tile_rows // plan.row_tile)
+    assert plan.threads <= 512
+    assert plan.grid == min(-(-n // rows), plan.ctas_per_sm * 132)
+
+
+def test_every_planned_shape_has_its_instantiation():
+    """The C launcher refuses a plan whose (type, R, C, NSEG) it was not
+    compiled for: every plan over a grid of shapes names one of the
+    instantiations listed in ``csrc/dia.cu``."""
+    import os
+    import re
+
+    with open(os.path.join(_build.CSRC_DIR, "dia.cu")) as f:
+        built = set(re.findall(
+            r"X\((float|double), (\d+), (\d+), (\d+)\)", f.read()))
+    assert built
+    for dtype, name in ((torch.float32, "float"), (torch.float64, "double")):
+        for D in (1, 7, 40, 301, 700, 2001, 5000):
+            for r in (1, 2, 3, 4, 5, 8, 16, 17, 40, 100):
+                plan = tdia.launch_plan(10_000, D, r, dtype, limits=tdia.H100)
+                if plan.variant == "stream":
+                    key = (name, str(plan.row_tile), str(plan.col_tile),
+                           str(plan.segments))
+                    assert key in built, (D, r, dtype, plan)
+                    assert plan.threads <= 512
+                    assert plan.smem_bytes <= 232_448
+
+
+def test_launch_plan_avoids_bank_conflicts_on_the_bench_band():
+    """At the bench band the chosen segment length and window stride leave
+    the 16-byte window loads and the table loads of a warp conflict-free:
+    4 wavefronts for 32 lanes x 16 bytes, 1 for each of the 4 table words."""
+    plan = tdia.launch_plan(200_000, 301, 16, torch.float32, limits=tdia.H100)
+    assert tdia._conflicts(301, plan.row_tile, plan.col_tile, plan.segments,
+                           plan.groups, plan.seg_len, plan.win_stride, 1) == 8
+    # the model itself: consecutive words, one bank, and 16-byte rows
+    assert tdia._wavefronts(list(range(32)), 1) == 1
+    assert tdia._wavefronts([32 * k for k in range(32)], 1) == 32
+    assert tdia._wavefronts([0] * 32, 1) == 1
+    assert tdia._wavefronts([4 * k for k in range(32)], 4) == 4
+    assert tdia._wavefronts([16 * k for k in range(32)], 4) == 16
+
+
+def test_launch_plan_overrides_and_refusals():
+    plan = tdia.launch_plan(200_000, 301, 16, torch.float32, limits=tdia.H100,
+                            tile_rows=16, ctas_per_sm=1, stages=3,
+                            segments=16, item_rows=64)
+    assert (plan.tile_rows, plan.ctas_per_sm, plan.stages, plan.segments,
+            plan.tiles_per_item) == (16, 1, 3, 16, 4)
+    assert plan.smem_bytes <= 232_448
+    with pytest.raises(ValueError):
+        tdia.launch_plan(0, 301, 1, torch.float32, limits=tdia.H100)
+
+
+@pytest.mark.parametrize("offsets", BANDS, ids=["sym", "asym", "upper"])
+@pytest.mark.parametrize("rhs", [1, 4], ids=["vector", "block"])
+def test_operator_on_cpu_is_the_plain_version(offsets, rhs, monkeypatch):
+    """The prepared apply the solver keeps: on CPU tensors it is
+    ``dia_matvec_plain`` (and so the JAX ``dia_apply``) to 1e-12, and it
+    builds nothing."""
+    import jax.numpy as jnp
+    from george_tpu.solvers.sparse import dia_apply
+
+    def refuse():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(tdia, "dia_kernel_launches", 0)
+    rng = np.random.default_rng(4)
+    n = 300
+    vals, diag = _band(rng, n, offsets)
+    y = rng.standard_normal((n,) if rhs == 1 else (n, rhs))
+    op = tdia.DiaOperator(np.asarray(offsets), n)
+    assert (op.d_min, op.D) == (offsets[0], len(offsets))
+    args = (torch.as_tensor(vals), torch.as_tensor(diag), torch.as_tensor(y))
+    out = op(*args).numpy()
+    plain = tdia.dia_matvec_plain(args[0], offsets, args[1], args[2]).numpy()
+    ref = np.asarray(dia_apply(jnp.asarray(vals), np.asarray(offsets),
+                               jnp.asarray(diag), jnp.asarray(y)))
+    np.testing.assert_allclose(out, plain, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=1e-12)
+    assert tdia.dia_kernel_launches == 0
+
+
+def test_operator_takes_contiguous_offsets_only():
+    with pytest.raises(ValueError):
+        tdia.DiaOperator([0, 2, 3], 10)
+
+
+def test_solver_keeps_one_operator_per_band(monkeypatch):
+    """``SparseSolver.compute`` prepares the band's operator once; every
+    apply goes through it and equals the plain version."""
+    from george_tpu_torch import kernels
+    from george_tpu_torch.solvers.sparse import SparseSolver
+
+    def refuse():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    rng = np.random.default_rng(5)
+    x = np.sort(rng.uniform(0, 20.0, 400))
+    k = kernels.WendlandC2Kernel(
+        log_rc=np.log(1.5), kernel_base=kernels.ExpSquaredKernel(metric=1.0))
+    s = SparseSolver(k, direct=False, device="cpu", num_probes=4)
+    s.compute(x, 0.1)
+    assert isinstance(s._dia, tdia.DiaOperator)
+    assert (s._dia.d_min, s._dia.D) == tdia.band_range(s._dia_offsets)
+    Y = torch.as_tensor(rng.standard_normal((400, 3)))
+    plain = tdia.dia_matvec_plain(s._vals, s._dia_offsets, s._diag, Y)
+    np.testing.assert_allclose(s._apply_fixed(Y).numpy(), plain.numpy(),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(s.apply_forward(Y.numpy()), plain.numpy(),
+                               rtol=1e-12, atol=1e-12)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,D,r,dtype", [(5000, 301, 1, torch.float32),
-                                         (5000, 301, 16, torch.float32),
-                                         (5037, 301, 17, torch.float32),
-                                         (2000, 301, 40, torch.float32),
-                                         (3000, 301, 4, torch.float64),
-                                         (3000, 2001, 32, torch.float32)])
-def test_cuda_kernel_matches_plain(n, D, r, dtype):
-    """The CUDA kernel against its plain version on the card: both
-    instantiations (one column; 16 per pass, so r = 17 and 40 take
-    several passes over each row) and both variants (the last case's
-    window exceeds shared memory)."""
+@pytest.mark.parametrize("n,D,r,dtype,d_min", [
+    (5000, 301, 1, torch.float32, None),
+    (5000, 301, 16, torch.float32, None),
+    (5037, 301, 17, torch.float32, None),
+    (2000, 301, 40, torch.float32, None),
+    (3000, 301, 4, torch.float64, None),
+    (3000, 2001, 32, torch.float32, None),
+    (5037, 301, 16, torch.float32, None),
+    (19, 11, 3, torch.float32, None),
+    (700, 7, 17, torch.float32, 2),
+    (700, 7, 1, torch.float64, 2)])
+def test_cuda_kernel_matches_plain(n, D, r, dtype, d_min):
+    """The CUDA kernel against its plain version on the card: one column
+    and register-tiled column groups (r = 17 and 40 end in a masked group,
+    r = 40 takes two passes over a staged tile), a ragged last tile, n
+    below one tile, an upper band (``d_min > 0``), and both variants (the
+    D = 2001 case's window exceeds shared memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(3)
-    offsets = tuple(range(-(D // 2), D - D // 2))
+    if d_min is None:
+        d_min = -(D // 2)
+    offsets = tuple(range(d_min, d_min + D))
     vals, diag = _band(rng, n, offsets)
     y = rng.standard_normal((n, r))
     vals, diag, y = (torch.as_tensor(a).to("cuda", dtype)
