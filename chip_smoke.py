@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """Smoke run of the PyTorch/CUDA port (``george_tpu_torch``) on one GPU.
 
-Drives the port's two paths once through their public entry points, at the
+Drives the port's paths once through their public entry points, at the
 sizes the project benchmarks:
 
 * the HODLR marginal log-likelihood and its gradient at n = 1e5 on the
@@ -11,7 +11,10 @@ sizes the project benchmarks:
   ``benchmarks/bench_dia.py``: n = 2e5 sorted points on [0, n/50], a
   ``WendlandC2Kernel`` (cutoff 2) over ``ExpSquaredKernel(metric=1)``,
   yerr 0.1, seed 0: about 200 neighbours per point, a band of about 301
-  diagonals.
+  diagonals;
+* the inference layer: NUTS at the n = 512 configuration of
+  ``benchmarks/bench_nuts.py``, and ``GP.log_prob_fn`` on the two paths
+  above under the samplers and ``minimize``.
 
 Phases:
 
@@ -35,13 +38,28 @@ Phases:
    that count, a per-stage breakdown and a ``torch.profiler`` window;
 5. HODLR slice, float64: the likelihood against the anchor, and the exact
    autograd gradient against central finite differences;
-6. sparse slice, direct (exact banded Cholesky), float64 then float32: the
-   float64 numbers are the exact reference of phase 7;
-7. sparse slice, iterative (``direct=False``), float32: CG + SLQ +
+6. HODLR ``log_prob_fn`` over 4 chains through the samplers' batched
+   evaluator, smooth n = 1e5, float32: one leaf launch of B = 2048 per
+   batched evaluation, each chain against the unbatched call (the
+   gradient gate in float64), the anchor, the peak memory of a batched
+   reverse-mode evaluation, a short ``sample_hmc`` and a profile;
+7. sparse slice, direct (exact banded Cholesky), float64 then float32: the
+   float64 numbers are the exact reference of phases 8 and 9;
+8. sparse slice, iterative (``direct=False``), float32: CG + SLQ +
    Hutchinson through the DIA kernel, each piece against its own bound,
    the DIA kernel's launch count, timings and a ``torch.profiler`` window
    over one gradient;
-8. a 2-D sparse check (the gather path, no band) at n = 2e4, float32.
+9. sparse ``log_prob_fn`` (``direct=False``), float32: value and gradient
+   through the CG and SLQ adjoints and the DIA kernel against the direct
+   float64 values, then ``minimize`` for 3 iterations;
+10. a 2-D sparse check (the gather path, no band) at n = 2e4, float32;
+11. NUTS at ``benchmarks/bench_nuts.py``'s n = 512 configuration (7
+    parameters, 8 chains, max_depth 8, dense mass, segment_size 8) for
+    ``NUTS_STEPS`` warmup and sample steps, float64 then float32:
+    ``log_prob`` at the start vector against the CPU float64 port, finite
+    samples, samples/s, acceptance, depth, divergence fraction, leapfrog
+    steps, host reads, the posterior moments and a ``torch.profiler``
+    window over 2 transitions (the dense path: no hand-written kernel).
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
@@ -70,6 +88,11 @@ ANCHOR_F32 = 2e-3
 ANCHOR_F64 = 1e-6
 N_MAIN = 100_000
 N_DIA = 200_000
+# NUTS warmup and sample steps per dtype. bench_nuts's 200 + 200 took
+# 1227 s in float64 alone on an H100 (57,698 batched leapfrog steps of
+# 21 ms, host-bound), past this script's time limit, so
+# the path runs 25 + 25 here (NUTS_STEPS = 200 is the full configuration)
+NUTS_STEPS = 25
 
 # the card's published peaks (H100 SXM data sheet, at 700 W): device memory
 # bytes/s and float32 / float64 non-tensor FLOP/s
@@ -484,7 +507,9 @@ def profile_calls(calls, best_ms, label):
     """Device time of ``calls`` (each one evaluation) under
     ``torch.profiler``: the union of the device's busy intervals, the
     device operations (kernels and copies) launched, and the heaviest
-    kernels, each per evaluation."""
+    kernels, each per evaluation; the idle share against the profiled wall
+    time, and against ``best_ms`` (an unprofiled time) unless it is
+    None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -517,7 +542,8 @@ def profile_calls(calls, best_ms, label):
            "device_ops_per_eval": len(dev) / len(calls),
            "profiled_wall_ms_per_eval": wall_ms,
            "idle_share_profiled": 1.0 - busy_ms / wall_ms,
-           "idle_share_vs_best_unprofiled": 1.0 - busy_ms / best_ms}
+           "idle_share_vs_best_unprofiled":
+               None if best_ms is None else 1.0 - busy_ms / best_ms}
     log("%s profile (%d evaluations, torch.profiler): %s"
         % (label, len(calls), json.dumps(out)))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -998,6 +1024,312 @@ def phase_ell_2d():
     return out
 
 
+# ---------------------------------------------------------------------------
+# the inference layer
+# ---------------------------------------------------------------------------
+
+def nuts_model(device, dtype):
+    """benchmarks/bench_nuts.py's configuration at n = 512, same numpy
+    stream: the GP (7 parameters, white noise fitted), its log-posterior
+    with the Gaussian prior of sd 3 around the start vector, the start
+    vector and the 8 chains' starting points."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch import kernels
+
+    rng = np.random.default_rng(0)
+    n = 512
+    x = np.sort(rng.uniform(0.0, 30.0, n))
+    y = np.sin(x) * np.exp(-0.05 * x) + 0.1 * rng.standard_normal(n)
+    kernel = 0.5 * kernels.ExpSquaredKernel(1.3) * kernels.ExpSine2Kernel(
+        gamma=2.0, log_period=0.0) + 0.1 * kernels.Matern32Kernel(2.0)
+    gp = gtt.GP(kernel, white_noise=np.log(1e-4), fit_white_noise=True,
+                device=device, dtype=dtype)
+    gp.compute(x, 0.1)
+    v0 = gp.get_parameter_vector()
+    center = torch.as_tensor(v0, device=device, dtype=dtype)
+
+    def log_prior(th):
+        return -0.5 * torch.sum(((th - center) / 3.0) ** 2)
+
+    log_prob = gp.log_prob_fn(x, y, 0.1, gate_prior=False,
+                              log_prior=log_prior)
+    p0 = v0[None, :] + 1e-3 * rng.standard_normal((8, len(v0)))
+    return gp, log_prob, v0, p0
+
+
+def phase_nuts_512(dtype):
+    """NUTS at the n = 512 configuration: 8 chains, max_depth 8,
+    target_accept 0.8, dense mass, segment_size 8, ``NUTS_STEPS`` warmup
+    and as many samples."""
+    import torch
+    from george_tpu_torch.sampling import sample_nuts
+
+    name = str(dtype).split(".")[-1]
+    device = "cuda"
+    gp, log_prob, v0, p0 = nuts_model(device, dtype)
+    _, lp_cpu, _, _ = nuts_model("cpu", torch.float64)
+    start = torch.as_tensor(v0, device=device, dtype=dtype)
+    lp_card = float(log_prob(start))
+    lp_ref = float(lp_cpu(torch.as_tensor(v0, dtype=torch.float64)))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    r = abs(lp_card - lp_ref) / abs(lp_ref)
+    log("nuts n=512 %s: log_prob at the start vector %.12f on the card, "
+        "%.12f on the CPU in float64, rel %.3e (limit %.0e)"
+        % (name, lp_card, lp_ref, r, tol))
+    if not r <= tol:
+        raise RuntimeError("nuts n=512 %s: log_prob disagrees with the CPU "
+                           "float64 port" % name)
+    p0 = torch.as_tensor(p0, device=device, dtype=dtype)
+    kw = dict(max_depth=8, target_accept=0.8, dense_mass=True,
+              segment_size=8)
+    steps = NUTS_STEPS
+    # a short run first: the libraries' first calls are set-up, not sampling
+    sample_nuts(1, log_prob, p0, num_warmup=1, num_samples=1, **kw)
+    sync(device)
+    t0 = time.perf_counter()
+    samples, stats = sample_nuts(0, log_prob, p0, num_warmup=steps,
+                                 num_samples=steps, **kw)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    s = samples.double().cpu().numpy()
+    if not np.all(np.isfinite(s)):
+        raise RuntimeError("nuts n=512 %s: non-finite samples" % name)
+    flat = s.reshape(-1, s.shape[-1])
+    out = {"samples_per_sec": flat.shape[0] / seconds, "seconds": seconds,
+           "draws": flat.shape[0],
+           "mean_accept": float(stats["accept"].double().mean()),
+           "mean_depth": float(stats["depth"].double().mean()),
+           "divergence_frac": float(stats["diverging"].double().mean()),
+           "leapfrog_evals": stats["leapfrog_evals"],
+           "host_reads": stats["host_reads"],
+           "ms_per_leapfrog": seconds * 1e3 / stats["leapfrog_evals"],
+           "step_size": stats["step_size"].double().cpu().tolist(),
+           "posterior_mean": flat.mean(0).tolist(),
+           "posterior_sd": flat.std(0).tolist(),
+           "names": list(gp.get_parameter_names()),
+           "log_prob_rel_vs_cpu_f64": r}
+    log("nuts n=512 %s (chip_smoke): %.3f samples/s (%d draws in %.3f s), "
+        "mean accept %.4f, mean depth %.4f, divergence fraction %.4f, %d "
+        "leapfrog steps of all chains (%.3f ms each), %d host reads"
+        % (name, out["samples_per_sec"], out["draws"], seconds,
+           out["mean_accept"], out["mean_depth"], out["divergence_frac"],
+           out["leapfrog_evals"], out["ms_per_leapfrog"], out["host_reads"]))
+    for nm, m, sd in zip(out["names"], out["posterior_mean"],
+                         out["posterior_sd"]):
+        log("  %-40s mean %+.6f sd %.6f" % (nm, m, sd))
+    out["steps"] = steps
+    out["profile"] = profile_calls(
+        [lambda: sample_nuts(2, log_prob, p0, num_warmup=1, num_samples=1,
+                             **kw)], None,
+        "nuts n=512 %s, 2 transitions" % name)
+    return out
+
+
+def _recording_leaf_launches():
+    """Wrap the leaf kernel's wrapper so that each launch's batch shape is
+    recorded; returns the list and a function that unwraps it."""
+    from george_tpu_torch.ops import chol
+
+    shapes = []
+    launch = chol.cholesky_cuda
+
+    def recorded(A):
+        shapes.append(tuple(A.shape))
+        return launch(A)
+
+    chol.cholesky_cuda = recorded
+    return shapes, lambda: setattr(chol, "cholesky_cuda", launch)
+
+
+def phase_hodlr_chains(device, n):
+    """The HODLR log_prob over 4 chains through the samplers' batched
+    evaluator (``vmap(grad_and_value)``), smooth n = 1e5, float32: one
+    leaf launch of 4 x 512 blocks per evaluation, each chain against the
+    unbatched call, the anchor, a short HMC run, memory and profile."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.ops import chol
+    from george_tpu_torch.sampling import hmc, sample_hmc
+
+    x, y, yerr, kernel = smooth_dataset(n)
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                device=device, dtype=torch.float32)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync(device)
+    log("hodlr chains: compute %.3f s" % (time.perf_counter() - t0))
+    log_prob = gp.log_prob_fn(x, y, yerr, gate_prior=False)
+    truth = gp.get_parameter_vector()
+    rng = np.random.default_rng(5)
+    thetas = torch.as_tensor(
+        truth[None, :] + 0.01 * rng.standard_normal((4, len(truth))),
+        device=device, dtype=torch.float32)
+    value_and_grad = hmc._make_value_and_grad(log_prob)
+    out = {}
+
+    shapes, unwrap = _recording_leaf_launches()
+    try:
+        before = chol.chol_kernel_launches
+        times = []
+        for _ in range(3):
+            sync(device)
+            t0 = time.perf_counter()
+            lp, g = value_and_grad(thetas)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        launched = chol.chol_kernel_launches - before
+        log("hodlr chains: batched value + exact gradient of 4 chains, "
+            "%.3f s (best of 3; all %s); leaf launches %d for 3 "
+            "evaluations, batch shapes %s"
+            % (min(times), ", ".join("%.3f" % t for t in times), launched,
+               shapes))
+        st = gp.solver._struct
+        expected = (4 * st.n_pad // st.m, st.m, st.m)
+        if launched != 3 or shapes != [expected] * 3 or (
+                n == N_MAIN and expected[0] != 2048):
+            raise RuntimeError("hodlr chains: expected one leaf launch of "
+                               "B = 2048 per batched evaluation")
+    finally:
+        unwrap()
+    out["batched_eval_s"] = min(times)
+    out["batched_eval_s_all"] = times
+    out["leaf_launch_batch"] = shapes[0][0]
+
+    # each chain against the unbatched call. In float32 the exact reverse
+    # gradient at this n is rounding-limited (the skeleton interpolants sit
+    # at their ridge floor and amplify rounding): its distance from the
+    # float64 gradient is printed beside the batched-unbatched difference,
+    # and the gradient gate is held in float64, on the same data and
+    # skeletons
+    gp64 = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                  device=device, dtype=torch.float64)
+    gp64.compute(x, yerr)
+    log_prob64 = gp64.log_prob_fn(x, y, yerr, gate_prior=False)
+    lp64, g64 = hmc._make_value_and_grad(log_prob64)(thetas.double())
+    single = torch.func.grad_and_value(log_prob)
+    single64 = torch.func.grad_and_value(log_prob64)
+    rels = []
+    for c in range(4):
+        g1, v1 = single(thetas[c])
+        g1_64, v1_64 = single64(thetas[c].double())
+        scale = float(g1_64.abs().max())
+        r = {"value_f32": abs(float(lp[c]) - float(v1)) / abs(float(v1)),
+             "grad_f32": float((g[c] - g1).abs().max()) / scale,
+             "grad_f32_unbatched_vs_f64":
+                 float((g1.double() - g1_64).abs().max()) / scale,
+             "value_f64": abs(float(lp64[c]) - float(v1_64))
+             / abs(float(v1_64)),
+             "grad_f64": float((g64[c] - g1_64).abs().max()) / scale}
+        rels.append(r)
+        log("  chain %d: batched vs unbatched, f32 value rel %.3e (limit "
+            "1e-5), f32 gradient max|d| %.3e of max|g| (the f32 gradient's "
+            "own distance from f64: %.3e); f64 value rel %.3e (limit 1e-5), "
+            "f64 gradient %.3e of max|g| (limit 1e-3)"
+            % (c, r["value_f32"], r["grad_f32"],
+               r["grad_f32_unbatched_vs_f64"], r["value_f64"],
+               r["grad_f64"]))
+    out["chain_rel"] = rels
+    if not all(r["value_f32"] <= 1e-5 and r["value_f64"] <= 1e-5
+               and r["grad_f64"] <= 1e-3 for r in rels):
+        raise RuntimeError("hodlr chains: batched and unbatched disagree")
+    del gp64, log_prob64, lp64, g64
+    ll = float(log_prob(torch.as_tensor(truth, device=device,
+                                        dtype=torch.float32)))
+    out["anchor_rel"] = check_anchor("hodlr chains log_prob at the truth",
+                                     ll, ANCHOR_F32, n)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    value_and_grad(thetas)
+    sync(device)
+    out["peak_gb_batched_grad"] = torch.cuda.max_memory_allocated() / 1e9
+    out["resident_gb_before"] = base / 1e9
+    log("hodlr chains: peak device memory of one batched reverse-mode "
+        "evaluation %.3f GB (%.3f GB resident before it)"
+        % (out["peak_gb_batched_grad"], out["resident_gb_before"]))
+
+    t0 = time.perf_counter()
+    samples, stats = sample_hmc(3, log_prob, thetas, num_warmup=5,
+                                num_samples=5, num_leapfrog=4)
+    sync(device)
+    secs = time.perf_counter() - t0
+    if not bool(torch.isfinite(samples).all()):
+        raise RuntimeError("hodlr chains: non-finite HMC samples")
+    out["hmc_s_per_transition"] = secs / 10
+    out["hmc_accept"] = float(stats["accept"].double().mean())
+    log("hodlr chains: sample_hmc 4 chains, 5 + 5 transitions of 4 leapfrog "
+        "steps: %.3f s per transition (%d batched evaluations), mean "
+        "accept %.3f" % (secs / 10, stats["leapfrog_evals"],
+                         out["hmc_accept"]))
+    out["profile"] = profile_calls([lambda: value_and_grad(thetas)],
+                                   out["batched_eval_s"] * 1e3,
+                                   "hodlr chains, one batched evaluation")
+    return out
+
+
+def phase_sparse_log_prob(data, ref):
+    """``log_prob_fn`` on the sparse iterative path (``direct=False``),
+    bench_dia n = 2e5, float32: CG and SLQ with their adjoints through the
+    DIA kernel, against the direct float64 values; then three iterations
+    of ``minimize``."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.ops import dia
+    from george_tpu_torch.sampling import minimize
+
+    x, y, yerr, kernel = data
+    device = "cuda"
+    gp = gtt.GP(kernel, solver=gtt.SparseSolver, direct=False, device=device,
+                dtype=torch.float32)
+    gp.compute(x, yerr)
+    f = gp.log_prob_fn(x, y, yerr)
+    theta = torch.as_tensor(gp.get_parameter_vector(), device=device,
+                            dtype=torch.float32)
+    before = dia.dia_kernel_launches
+    sync(device)
+    t0 = time.perf_counter()
+    g, ll = torch.func.grad_and_value(f)(theta)
+    sync(device)
+    secs = time.perf_counter() - t0
+    launches = dia.dia_kernel_launches - before
+    ll = float(ll)
+    g = g.double().cpu().numpy()
+    n = len(x)
+    logdet = gp.solver.log_determinant
+    quad = -2.0 * ll - logdet - n * np.log(2.0 * np.pi)
+    out = {"ll": ll, "grad": g.tolist(), "seconds": secs,
+           "dia_launches": launches, "logdet": logdet, "quad": quad,
+           "quad_rel": float(rel(quad, ref["quad"])),
+           "logdet_rel": float(rel(logdet, ref["logdet"])),
+           "grad_rel": rel(g, ref["grad"]).tolist()}
+    log("sparse log_prob f32 (direct=False): value + gradient %.3f s, DIA "
+        "launches %d; ll %.6f, quad (from ll and the solver's SLQ logdet) "
+        "%.3e rel (limit 1e-3), logdet %.3e rel (limit 3e-2), gradient %s "
+        "rel (limit 0.15 each) against direct float64"
+        % (secs, launches, ll, out["quad_rel"], out["logdet_rel"],
+           np.array2string(np.asarray(out["grad_rel"]), precision=4)))
+    if launches <= 0:
+        raise RuntimeError("sparse log_prob never launched the DIA kernel")
+    if not (np.isfinite(ll) and np.all(np.isfinite(g))
+            and out["quad_rel"] <= 1e-3 and out["logdet_rel"] <= 0.03
+            and max(out["grad_rel"]) <= 0.15):
+        raise RuntimeError("sparse log_prob is off the direct f64 path")
+
+    t0 = time.perf_counter()
+    res = minimize(gp, y, options={"maxiter": 3})
+    sync(device)
+    out["minimize_s"] = time.perf_counter() - t0
+    out["minimize_nfev"] = int(res.nfev)
+    out["minimize_nit"] = int(res.nit)
+    log("sparse log_prob: minimize (L-BFGS-B, maxiter 3) %.3f s, %d "
+        "function evaluations, %d iterations, ll %.6f -> %.6f"
+        % (out["minimize_s"], res.nfev, res.nit, ll, -float(res.fun)))
+    if not np.isfinite(res.fun):
+        raise RuntimeError("sparse minimize ended non-finite")
+    return out
+
+
 def main():
     smi = phase_device()
     import torch
@@ -1033,6 +1365,16 @@ def main():
     del evaluate, thetas, args
     torch.cuda.empty_cache()
 
+    # the leaf kernel under the samplers' batched evaluator
+    chol.chol_kernel_launches = 0
+    chains = phase_hodlr_chains(device, N_MAIN)
+    launches_chains = chol.chol_kernel_launches
+    log("hodlr chains: leaf Cholesky kernel launches %d" % launches_chains)
+    if launches_chains == 0:
+        raise RuntimeError("the chain-batched path never launched the leaf "
+                           "kernel")
+    torch.cuda.empty_cache()
+
     data = (x, y, yerr, kernel)
     dia.dia_kernel_launches = 0
     direct = phase_sparse_direct(data)
@@ -1051,14 +1393,30 @@ def main():
         "sparse iterative f32 grad_log_likelihood")
     del gp_it
     torch.cuda.empty_cache()
+
+    # the DIA kernel under log_prob_fn's CG and SLQ adjoints
+    dia.dia_kernel_launches = 0
+    sparse_lp = phase_sparse_log_prob(data, direct["float64"])
+    launches_lp = dia.dia_kernel_launches
+    log("sparse log_prob: DIA kernel launches %d (value + gradient + "
+        "minimize)" % launches_lp)
+    if launches_lp == 0:
+        raise RuntimeError("log_prob_fn's sparse path never launched the DIA "
+                           "kernel")
+    torch.cuda.empty_cache()
     ell = phase_ell_2d()
+
+    # the inference layer on the dense path (no hand-written kernel on it)
+    nuts = {str(dt).split(".")[-1]: phase_nuts_512(dt)
+            for dt in (torch.float64, torch.float32)}
 
     log(json.dumps({"summary": {
         "build_s": build_s, "cusolver_ms": kern["cusolver_ms"],
         "leaf_kernel": {k: v for k, v in kern.items() if "x" in k},
         "f32": f32, "f64": f64, "dia_kernel": kdia, "tiled_kernel": tile,
         "sparse_direct": direct, "sparse_iterative": it,
-        "sparse_ell_2d": ell}}))
+        "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
+        "sparse_log_prob": sparse_lp}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library
     t, t2 = sorted((tile["8x128"], tile["1024x64"]),
@@ -1084,7 +1442,9 @@ def main():
          "plain_ms_2048x489_f32": k489["plain_ms"],
          "bound_ms_2048x489_f32": k489["bound_ms"],
          "library_ms_2048x489_f32": k489["library_ms"],
-         "max_abs_err_2048x489_f32": k489["max_abs_err"]},
+         "max_abs_err_2048x489_f32": k489["max_abs_err"],
+         "launches_chain_batched": launches_chains,
+         "chain_batched_launch_B": chains["leaf_launch_batch"]},
         {"name": "dia_matvec", "route": "cuda",
          "source": "george_tpu_torch/csrc/dia.cu",
          "replaces": "george_tpu/ops/dia.py:96",
@@ -1103,7 +1463,8 @@ def main():
          "ms_r17": r17["ms"], "plain_ms_r17": r17["plain_ms"],
          "bound_ms_r17": r17["bound_ms"], "library_ms_r17": r17["library_ms"],
          "max_abs_err_r17": r17["max_abs_err"],
-         "launches_in": "sparse iterative f32 path"},
+         "launches_in": "sparse iterative f32 path",
+         "launches_log_prob": launches_lp},
         {"name": "cholesky_tiled", "route": "cuda",
          "source": "george_tpu_torch/csrc/chol.cu",
          "replaces": "george_tpu/ops/chol.py:61",

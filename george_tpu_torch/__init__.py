@@ -10,7 +10,9 @@ Two paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
   Hutchinson gradients over a banded (DIA) or padded-neighbor (ELL)
   layout, and the exact block-tridiagonal Cholesky on sorted 1-D data;
 
-with the dense and trivial solvers and the ``GP`` object. The kernels on
+with the dense and trivial solvers, the ``GP`` object, and the inference
+layer (``sampling``: NUTS/HMC over batched chains, the ensemble sampler,
+ADVI, L-BFGS-B and Adam, all driven by ``GP.log_prob_fn``). The kernels on
 CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``: the
 panel-blocked leaf Cholesky and its tiled launch plan, the DIA matvec),
 built from source at first use.
@@ -38,6 +40,7 @@ __version__ = "0.1.0"
 from . import kernels  # noqa: E402,F401
 from . import metrics  # noqa: E402,F401
 from . import modeling  # noqa: E402,F401
+from . import sampling  # noqa: E402,F401
 from . import solvers  # noqa: E402,F401
 from .gp import GP, TINY  # noqa: E402,F401
 from .metrics import Metric, Subspace  # noqa: E402,F401
@@ -61,5 +64,6 @@ __all__ = [
     "kernels",
     "metrics",
     "modeling",
+    "sampling",
     "solvers",
 ]

@@ -8,12 +8,17 @@
 * ``grad_log_likelihood`` is autograd of the whole marginal likelihood
   through the solver's differentiable factorization (``loglike_fn``) or,
   for a solver without one, through a dense Cholesky; matrix-free solvers
-  (HODLR with ``grad_mode="hutchinson"``) supply a Hutchinson-estimated
-  gradient instead.
+  (HODLR with ``grad_mode="hutchinson"``, the sparse solver) supply a
+  Hutchinson-estimated gradient instead.
+* ``log_prob_fn`` is the samplers' surface: a pure function of the active
+  parameter tensor through the same fused likelihood, which composes with
+  ``torch.func.grad`` and ``vmap`` over chains (``sampling/``).
 
 ``compute(x, yerr)`` takes the vanilla george argument order; neighbor
 structures are the optional keyword ``nns``.
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -23,6 +28,7 @@ from .modeling import ModelSet, ConstantModel, Model, CallableModel
 from .neighbors import normalize_nns
 from .solvers import TrivialSolver, BasicSolver
 from .solvers.linalg import mahalanobis_loglike
+from .utils import multivariate_gaussian_samples
 
 __all__ = ["GP", "TINY"]
 
@@ -81,6 +87,7 @@ class GP(ModelSet):
         self._computed = False
         self._alpha = None
         self._y = None
+        self._fused = None
         self.device = torch.device(device)
         self.dtype = dtype
 
@@ -248,6 +255,7 @@ class GP(ModelSet):
         )
         self.computed = True
         self._alpha = None
+        self._fused = None  # the solver is baked into the fused functions
 
     def recompute(self, quiet=False, **kwargs):
         """Refactorize iff the parameters changed since :func:`compute`."""
@@ -267,6 +275,20 @@ class GP(ModelSet):
     # ------------------------------------------------------------------
     # Likelihood
     # ------------------------------------------------------------------
+
+    def lnlikelihood(self, y, quiet=False):
+        warnings.warn(
+            "'lnlikelihood' is deprecated. Use 'log_likelihood'",
+            DeprecationWarning,
+        )
+        return self.log_likelihood(y, quiet=quiet)
+
+    def grad_lnlikelihood(self, y, quiet=False):
+        warnings.warn(
+            "'grad_lnlikelihood' is deprecated. Use 'grad_log_likelihood'",
+            DeprecationWarning,
+        )
+        return self.grad_log_likelihood(y, quiet=quiet)
 
     def log_likelihood(self, y, quiet=False):
         """Marginal log-likelihood of ``y`` under the GP (requires
@@ -301,14 +323,12 @@ class GP(ModelSet):
         if not self._traceable:
             return self._grad_log_likelihood_host(y, quiet=quiet)
         try:
-            theta = self._tensor(self.parameter_vector).requires_grad_(True)
-            ll = self._fused_loglike_full()(
-                theta,
+            _, g = self._fused_value_and_grad()(
+                self._tensor(self.parameter_vector),
                 self._tensor(self._x),
                 self._tensor(self._check_dimensions(y)),
                 self._tensor(self._yerr2),
             )
-            (g,) = torch.autograd.grad(ll, theta)
             g = g.detach().cpu().numpy().astype(np.float64)
             g = g[self.unfrozen_mask]
             if not np.all(np.isfinite(g)):
@@ -326,9 +346,9 @@ class GP(ModelSet):
     def _fused_loglike_full(self):
         """Pure ``loglike(theta_full, x, y, yerr2)`` on tensors.
 
-        If the computed solver exposes a differentiable factorization
-        (``loglike_fn``; the hierarchical solver), the likelihood and its
-        gradient flow through *that* factorization; otherwise the dense
+        If the computed solver exposes a differentiable likelihood
+        (``loglike_fn``; the hierarchical and sparse solvers), the value and
+        its gradient flow through *that* factorization; otherwise the dense
         closed form is used.
         """
         mean = self.mean
@@ -352,9 +372,197 @@ class GP(ModelSet):
             if sfn is not None:
                 return sfn(theta[n_m + n_w :], diag, y - mu)
             K = kernel.gram(theta[n_m + n_w :], x, x) + torch.diag(diag)
-            return mahalanobis_loglike(torch.linalg.cholesky(K), y - mu)
+            # a matrix that is not positive definite gives NaN (as JAX's
+            # Cholesky does), not an exception: under vmap one bad chain
+            # must not stop the others
+            L, info = torch.linalg.cholesky_ex(K)
+            return torch.where(info == 0,
+                               mahalanobis_loglike(L, y - mu), torch.nan)
 
         return loglike
+
+    def log_prob_fn(self, x, y, yerr=0.0, gate_prior=True, log_prior=None):
+        """A pure ``f(theta_active) -> log-posterior`` on tensors.
+
+        The returned function evaluates the fused (assemble -> factor ->
+        solve -> logdet) marginal likelihood at an *active* (unfrozen)
+        parameter tensor on the GP's device, holding the data constant, and
+        returns a scalar tensor. It composes with ``torch.func.grad`` and
+        ``torch.func.vmap`` (the samplers evaluate every chain's value and
+        gradient as ``vmap(grad_and_value(f))``). Uniform-prior bounds gate
+        the result to ``-inf`` outside the box (``gate_prior``); non-finite
+        likelihoods map to ``-inf`` so samplers reject instead of
+        propagating NaN.
+
+        ``log_prior`` may be a ``theta_active -> scalar`` function in torch
+        ops, added to the likelihood. Gradient-based samplers want a smooth
+        prior here rather than the hard box: a GP marginal likelihood
+        typically plateaus as amplitudes and scales run off to infinity, so
+        without a proper prior the posterior is improper and NUTS
+        trajectories run to maximum depth.
+
+        When the solver provides a fused likelihood (``loglike_fn``), ``x``
+        must be the computed inputs: the solver evaluates the covariance on
+        the points it sorted and padded in :func:`compute`.
+        """
+        if not self._traceable:
+            raise ValueError(
+                "log_prob_fn requires traceable mean/white-noise models"
+            )
+        x = self.parse_samples(x)
+        if (
+            self.solver is not None
+            and self.solver.computed
+            and hasattr(self.solver, "loglike_fn")
+            and not np.array_equal(x, self._x)
+        ):
+            raise ValueError(
+                "log_prob_fn: x must match the computed inputs when the "
+                "solver provides a fused likelihood (call gp.compute(x, "
+                "...) with these points first)"
+            )
+        xt = self._tensor(x)
+        yt = self._tensor(np.atleast_1d(y))
+        yerr2 = self._yerr2_tensor(yerr, yt.shape[0])
+        loglike = self._fused_loglike_full()
+        frozen, order = self._active_gather()
+        bounds = self.get_parameter_bounds()
+        lo = self._tensor([-np.inf if b[0] is None else float(b[0])
+                           for b in bounds])
+        hi = self._tensor([np.inf if b[1] is None else float(b[1])
+                           for b in bounds])
+
+        def log_prob(theta_active):
+            theta_active = theta_active.to(self.dtype)
+            theta = torch.cat([theta_active, frozen])[order]
+            ll = loglike(theta, xt, yt, yerr2)
+            ll = torch.where(torch.isfinite(ll), ll, -np.inf)
+            if log_prior is not None:
+                ll = ll + log_prior(theta_active)
+                ll = torch.where(torch.isfinite(ll), ll, -np.inf)
+            if gate_prior:
+                inside = torch.all((theta_active >= lo) & (theta_active <= hi))
+                ll = torch.where(inside, ll, -np.inf)
+            return ll
+
+        return log_prob
+
+    def _yerr2_tensor(self, yerr, n):
+        try:
+            return float(yerr) ** 2 * torch.ones(n, dtype=self.dtype,
+                                                 device=self.device)
+        except TypeError:
+            return self._tensor(np.asarray(yerr, dtype=np.float64) ** 2)
+
+    def _active_gather(self):
+        """``(frozen, order)``: the full parameter vector is
+        ``cat([theta_active, frozen])[order]``, a gather that ``vmap``
+        batches and that copies each value exactly."""
+        mask = self.unfrozen_mask
+        (active_idx,) = np.nonzero(mask)
+        (frozen_idx,) = np.nonzero(~mask)
+        order = np.empty(len(mask), dtype=np.int64)
+        order[active_idx] = np.arange(len(active_idx))
+        order[frozen_idx] = len(active_idx) + np.arange(len(frozen_idx))
+        frozen = self._tensor(self.parameter_vector[frozen_idx])
+        return frozen, torch.as_tensor(order, device=self.device)
+
+    def check_fused_thetas(self, thetas, y, yerr=0.0, max_evals=16,
+                           tol=None, warn=True):
+        """Post-hoc factorization health check over sampler-visited thetas.
+
+        The fused ``log_prob_fn`` never checks its factorization, so a
+        chain walking a kernel component into a regime where the
+        hierarchical cascade goes unstable would get wrong
+        log-probabilities silently. Run this after sampling: it evaluates
+        the solver's relative solve residual ``|K z - r| / |r|``
+        (``residual_fn``) at the per-dimension extreme thetas plus an even
+        subsample of the chain, and warns when any exceeds ``tol``
+        (default 1e-6 in float64, 1e-2 in float32).
+
+        ``thetas`` are ACTIVE parameter vectors, shape ``(..., ndim)``;
+        ``y``/``yerr`` the computed dataset. Returns ``{"thetas",
+        "residuals", "max", "ok"}``, or ``None`` when the computed solver
+        has no fused residual monitor (dense and CG-based solvers control
+        their residual by construction).
+        """
+        if not (
+            self.solver is not None
+            and self.solver.computed
+            and hasattr(self.solver, "residual_fn")
+        ):
+            return None
+        x = self._tensor(self._x)
+        yt = self._tensor(np.atleast_1d(y))
+        yerr2 = self._yerr2_tensor(yerr, yt.shape[0])
+        mean, wn = self.mean, self.white_noise
+        n_m, n_w = mean.full_size, wn.full_size
+        rfn = self.solver.residual_fn()
+        frozen, order = self._active_gather()
+
+        def residual(theta_active):
+            theta = torch.cat([self._tensor(theta_active), frozen])[order]
+            with torch.no_grad():
+                mu = mean.value_fn(theta[:n_m], x)
+                wnv = wn.value_fn(theta[n_m:n_m + n_w], x)
+                return float(rfn(theta[n_m + n_w:], yerr2 + torch.exp(wnv),
+                                 yt - mu))
+
+        th = np.asarray(thetas, dtype=np.float64)
+        th = th.reshape(-1, th.shape[-1])
+        th = th[np.all(np.isfinite(th), axis=1)]
+        if th.shape[0] == 0:
+            return {"thetas": th, "residuals": np.empty(0),
+                    "max": 0.0, "ok": True}
+        # per-dimension extremes + an even subsample, deduplicated
+        idx = set()
+        for d in range(th.shape[1]):
+            idx.add(int(np.argmin(th[:, d])))
+            idx.add(int(np.argmax(th[:, d])))
+        for i in np.linspace(0, th.shape[0] - 1,
+                             max(max_evals - len(idx), 2)).astype(int):
+            idx.add(int(i))
+        idx = sorted(idx)[:max(max_evals, 2 * th.shape[1])]
+        picked = th[idx]
+        res = np.array([residual(t) for t in picked])
+        if tol is None:
+            tol = 1e-6 if self.dtype == torch.float64 else 1e-2
+        bad = ~(res < tol)  # NaN residuals count as failures
+        out = {"thetas": picked, "residuals": res,
+               "max": float(np.nanmax(res)) if np.isfinite(res).any()
+               else float("inf"),
+               "ok": not bool(bad.any())}
+        if warn and bad.any():
+            worst = int(np.nanargmax(np.where(np.isfinite(res), res,
+                                              np.inf)))
+            warnings.warn(
+                "fused-path factorization residual check failed at %d of "
+                "%d sampled thetas (worst |Kz-r|/|r| = %.2e at theta=%s, "
+                "tol %.0e): the chain visited a regime where the "
+                "hierarchical factorization is unstable (typically a "
+                "non-decaying kernel component growing dominant) — "
+                "log-probabilities there are unreliable. Restrict the "
+                "prior, or use BasicSolver at these scales."
+                % (int(bad.sum()), len(res), out["max"],
+                   np.array2string(picked[worst], precision=3), tol),
+                stacklevel=2,
+            )
+        return out
+
+    def _fused_value_and_grad(self):
+        """``(theta_full, x, y, yerr2) -> (loglike, d loglike / d theta)``
+        through the fused likelihood, cached until the next compute."""
+        if self._fused is None:
+            loglike = self._fused_loglike_full()
+
+            def value_and_grad(theta, x, y, yerr2):
+                theta = theta.detach().requires_grad_(True)
+                ll = loglike(theta, x, y, yerr2)
+                (g,) = torch.autograd.grad(ll, theta)
+                return ll.detach(), g
+
+            self._fused = value_and_grad
+        return self._fused
 
     def _grad_log_likelihood_host(self, y, quiet=False):
         """Gradient for host-side (non-traceable) mean or white-noise
@@ -439,7 +647,7 @@ class GP(ModelSet):
         return self.solver.apply_inverse(r, in_place=True)
 
     # ------------------------------------------------------------------
-    # Prediction
+    # Prediction and sampling
     # ------------------------------------------------------------------
 
     def _kernel_values(self, kernel, x1, x2=None, diag=False):
@@ -490,9 +698,48 @@ class GP(ModelSet):
         cov -= np.dot(Kxs, KinvKxs)
         return mu, cov
 
+    def sample_conditional(self, y, t, size=1):
+        """Samples from the predictive conditional distribution."""
+        mu, cov = self.predict(y, t)
+        return multivariate_gaussian_samples(cov, size, mean=mu)
+
+    def sample(self, t=None, size=1):
+        """Samples from the prior distribution (at ``t``, or at the
+        computed coordinates through the solver's ``apply_sqrt``)."""
+        if t is None:
+            self.recompute()
+            n, _ = self._x.shape
+            results = np.array(self.solver.apply_sqrt(
+                np.random.randn(size, n)))
+            results += self._call_mean(self._x)
+            return results[0] if size == 1 else results
+
+        x = self.parse_samples(t)
+        cov = self.get_matrix(x)
+        cov[np.diag_indices_from(cov)] += TINY
+        return multivariate_gaussian_samples(
+            cov, size, mean=self._call_mean(x)
+        )
+
+    def get_matrix(self, x1, x2=None):
+        """The covariance matrix at coordinates ``x1`` (cross-covariance
+        against ``x2`` if given), as float64 numpy."""
+        x1 = self.parse_samples(x1)
+        if x2 is None:
+            return self.kernel.get_value(x1)
+        return self.kernel.get_value(x1, self.parse_samples(x2))
+
     # Modeling-protocol synonyms.
     def get_value(self, *args, **kwargs):
         return self.log_likelihood(*args, **kwargs)
 
     def get_gradient(self, *args, **kwargs):
         return self.grad_log_likelihood(*args, **kwargs)
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["_fused"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)

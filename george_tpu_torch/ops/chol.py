@@ -272,12 +272,27 @@ def _phi(X):
 
 
 class _Cholesky(torch.autograd.Function):
+    """The batched Cholesky as a Function that ``torch.func`` transforms
+    compose with. Under ``vmap`` the mapped dimension is folded into the
+    kernel's batch: ``(C, B, m, m)`` is one launch of ``(C * B, m, m)``
+    (the counterpart of JAX's ``vmap`` of the ``custom_vjp`` around the
+    Pallas kernel), so a batch of chains costs one leaf launch per
+    evaluation. The backward is torch ops, which batch on their own."""
 
     @staticmethod
-    def forward(ctx, A):
-        L = _forward(A)
-        ctx.save_for_backward(L)
-        return L
+    def forward(A):
+        return _forward(A)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def vmap(info, in_dims, A):
+        A = A.movedim(in_dims[0], 0)
+        C, B, m, _ = A.shape
+        L = _Cholesky.apply(A.reshape(C * B, m, m))
+        return L.reshape(C, B, m, m), 0
 
     @staticmethod
     def backward(ctx, Lbar):

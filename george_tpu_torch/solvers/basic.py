@@ -65,6 +65,12 @@ class BasicSolver(object):
         y = self._tensor(y)
         return float(torch.dot(y, chol_solve(self._L, y)))
 
+    def apply_sqrt(self, r):
+        """``r @ L^T``: rows of ``r`` transported by the Cholesky factor
+        (the prior-sampling transport)."""
+        return (self._tensor(r) @ self._L.mT).cpu().numpy().astype(
+            np.float64)
+
     def apply_forward(self, y, i=0):
         """Matvec with ``K + diag`` (``i == 0``) or with
         ``dK/dtheta_{i-1}`` (a forward-mode derivative of the block)."""

@@ -941,17 +941,17 @@ class HODLRSolver(object):
     def loglike_fn(self):
         """Pure ``f(theta_kernel, diag, r) -> log-likelihood`` through the
         hierarchical factorization (differentiable end-to-end); ``diag``
-        and ``r`` are tensors in the original point order."""
+        and ``r`` are tensors in the original point order. It composes with
+        ``torch.func.vmap`` and ``grad``: under ``vmap`` over chains the leaf
+        Cholesky of every chain is one kernel launch."""
         st = self._struct
         pair = self.kernel.pair_fn
         perm = torch.as_tensor(self._perm, device=self.device)
         xpad, valid = self._xpad, self._valid
-        n, n_pad = st.n, st.n_pad
+        n = st.n
 
         def loglike(theta_k, diag, r):
-            pad = n_pad - n
-            diag_pad = torch.cat([diag[perm], diag.new_ones(pad)])
-            r_pad = torch.cat([r[perm], r.new_zeros(pad)])
+            diag_pad, r_pad = self._pad_diag_rhs(perm, diag, r)
             factors, logdet = hodlr_factor(
                 pair, theta_k, xpad, valid, diag_pad, st
             )
@@ -960,6 +960,41 @@ class HODLRSolver(object):
             return -0.5 * (quad + logdet + n * _LOG_2PI)
 
         return loglike
+
+    def _pad_diag_rhs(self, perm, diag, r):
+        """``diag`` and ``r`` (original order) in the solver's sorted,
+        padded order: padding rows get a unit diagonal and a zero
+        residual."""
+        pad = self._struct.n_pad - self._struct.n
+        return (torch.cat([diag[perm], diag.new_ones(pad)]),
+                torch.cat([r[perm], r.new_zeros(pad)]))
+
+    def residual_fn(self):
+        """Pure ``f(theta_kernel, diag, r) -> |K_bar z - r| / |r|``, the
+        relative solve residual of the fused factorization at ``theta``,
+        with ``z`` its solve of ``r`` and ``K_bar`` the compressed operator
+        assembled afresh at ``theta``.
+
+        The fused ``loglike_fn`` never checks itself, so a chain that walks
+        into a regime where the cascade's SMW cores go singular (a
+        non-decaying kernel component growing dominant) would get wrong
+        log-probabilities silently; evaluate this at the thetas a sampler
+        visited (``GP.check_fused_thetas`` picks them) instead."""
+        st = self._struct
+        pair = self.kernel.pair_fn
+        perm = torch.as_tensor(self._perm, device=self.device)
+        xpad, valid = self._xpad, self._valid
+
+        def residual(theta_k, diag, r):
+            diag_pad, r_pad = self._pad_diag_rhs(perm, diag, r)
+            factors, _ = hodlr_factor(pair, theta_k, xpad, valid, diag_pad,
+                                      st)
+            z = hodlr_solve(factors, st, r_pad)
+            kz = hodlr_matvec(pair, theta_k, xpad, valid, diag_pad, st, z)
+            return (torch.linalg.vector_norm(kz - r_pad)
+                    / torch.linalg.vector_norm(r_pad))
+
+        return residual
 
     # -- george protocol ----------------------------------------------------
 

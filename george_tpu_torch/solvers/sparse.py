@@ -21,9 +21,13 @@ data the neighborhoods are contiguous and the structure is a band (DIA):
 On a band the default ``direct="auto"`` takes the exact block-tridiagonal
 Cholesky of ``solvers/banded.py`` instead of CG and SLQ.
 
-Not ported yet: ``mesh=`` (row sharding) and the iterative path's
-``loglike_fn`` (the fused likelihood behind ``GP.log_prob_fn`` and the
-samplers); both raise ``NotImplementedError``.
+The fused likelihood behind ``GP.log_prob_fn`` and the samplers
+(``SparseSolver.loglike_fn``) is the exact banded one on the direct path;
+on the iterative path it is CG with an implicit adjoint and SLQ with a
+Hutchinson adjoint (``_CgSolve``, ``_SlqLogdet``), through the same apply.
+
+Not ported yet: ``mesh=`` (row sharding), which raises
+``NotImplementedError``.
 """
 
 import numpy as np
@@ -249,6 +253,100 @@ def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):
     return (X[:, 0] if squeeze else X), it
 
 
+def _per_member(apply, info, in_dims, args):
+    """A Function's ``vmap`` rule that runs the batch members one after
+    another: ``apply`` on each member's slice of the batched arguments,
+    the results stacked along dimension 0."""
+    outs = [apply(*[a if d is None else a.select(d, i)
+                    for a, d in zip(args, in_dims)])
+            for i in range(info.batch_size)]
+    return torch.stack(outs), 0
+
+
+class _CgSolve(torch.autograd.Function):
+    """``z = (K + diag)^{-1} b`` by Jacobi-preconditioned CG through the
+    solver's fixed-table apply, differentiable in the value table, the
+    diagonal and ``b`` by implicit differentiation (the port of
+    ``cg_diff_solve``, JAX's ``custom_linear_solve``): the backward is one
+    more CG solve ``w = K^{-1} z_bar``, then ``b_bar = w``,
+    ``vals_bar[i, j] = -w_i z[nbr[i, j]]`` on the masked slots and
+    ``diag_bar = -w * z``.
+
+    Arguments: ``(vals, diag, b, pdiag, nbr, mask, apply, tol, maxiter)``,
+    with ``apply(vals, Y, diag) = (K + diag) Y`` and ``pdiag`` the
+    preconditioner (not differentiated: the solution does not depend on
+    it). Under ``torch.func.vmap`` the batch members run one after another:
+    CG's stopping test reads the host and the DIA kernel takes plain
+    tensors, so chains are not batched into one launch here."""
+
+    @staticmethod
+    def forward(vals, diag, b, pdiag, nbr, mask, apply, tol, maxiter):
+        vals, diag = vals.contiguous(), diag.contiguous()
+        z, _ = cg_solve(lambda Y: apply(vals, Y, diag), b.contiguous(),
+                        pdiag, tol=tol, maxiter=maxiter)
+        return z
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        vals, diag, _, pdiag, nbr, mask, apply, tol, maxiter = inputs
+        ctx.save_for_backward(vals, diag, pdiag, nbr, mask, output)
+        ctx.rest = (apply, tol, maxiter)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_member(_CgSolve.apply, info, in_dims, args)
+
+    @staticmethod
+    def backward(ctx, z_bar):
+        vals, diag, pdiag, nbr, mask, z = ctx.saved_tensors
+        w = _CgSolve.apply(vals, diag, z_bar, pdiag, nbr, mask, *ctx.rest)
+        vals_bar = -w[:, None] * z[nbr] * mask
+        return vals_bar, -w * z, w, None, None, None, None, None, None
+
+
+class _SlqLogdet(torch.autograd.Function):
+    """``log det(K + diag)`` by stochastic Lanczos quadrature over the
+    probe block ``V`` ``(n, num_probes)``, with the Hutchinson adjoint of
+    the JAX package's ``slq_ld``: a CG solve ``K^{-1} V`` of the SAME probe
+    block (common random numbers between value and gradient), then
+    ``diag_bar = g * mean_k(V * K^{-1} V)`` and ``vals_bar[i, j] = g *
+    mean_k V[i, k] (K^{-1} V)[nbr[i, j], k]`` on the masked slots,
+    accumulated probe by probe so that about two value tables are live.
+
+    Arguments: ``(vals, diag, V, pdiag, nbr, mask, apply, num_steps, tol,
+    maxiter)``. Under ``torch.func.vmap`` the batch members run one after
+    another (the backward's CG reads the host)."""
+
+    @staticmethod
+    def forward(vals, diag, V, pdiag, nbr, mask, apply, num_steps, tol,
+                maxiter):
+        vals, diag = vals.contiguous(), diag.contiguous()
+        return slq_logdet(lambda Y: apply(vals, Y, diag), V.mT,
+                          num_steps=num_steps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        vals, diag, V, pdiag, nbr, mask, apply, _, tol, maxiter = inputs
+        ctx.save_for_backward(vals, diag, V, pdiag, nbr, mask)
+        ctx.rest = (apply, tol, maxiter)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_member(_SlqLogdet.apply, info, in_dims, args)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, diag, V, pdiag, nbr, mask = ctx.saved_tensors
+        KinvV = _CgSolve.apply(vals, diag, V, pdiag, nbr, mask, *ctx.rest)
+        num_probes = V.shape[1]
+        diag_bar = g * torch.mean(V * KinvV, dim=1)
+        acc = torch.zeros_like(vals)
+        for k in range(num_probes):
+            acc = acc + V[:, k, None] * KinvV[:, k][nbr]
+        vals_bar = g * (acc / num_probes) * mask
+        return (vals_bar, diag_bar) + (None,) * 8
+
+
 def _not_ported(what, where):
     return NotImplementedError(
         "SparseSolver %s is not ported to george_tpu_torch yet (ROADMAP.md "
@@ -460,14 +558,42 @@ class SparseSolver(object):
             return X
 
     def loglike_fn(self):
-        """Pure ``f(theta_kernel, diag, r) -> log-likelihood``: on the
-        banded direct path the fused exact block-Cholesky likelihood
-        (differentiable by autograd). The iterative path's (CG + SLQ with
-        custom adjoints) is not ported yet."""
+        """Pure ``f(theta_kernel, diag, r) -> log-likelihood`` (the
+        contract of the hierarchical solver's), differentiable by autograd
+        and ``torch.func`` in ``theta``, ``diag`` and ``r``.
+
+        On the banded direct path: the fused exact block-Cholesky
+        likelihood. Otherwise: the entry table ``ell_values(theta)`` by
+        autograd, the quadratic term by a CG solve with an implicit adjoint
+        (:class:`_CgSolve`) and the log-determinant by SLQ over the
+        solver's SLQ probe block with a Hutchinson adjoint over the same
+        probes (:class:`_SlqLogdet`), both applying ``K + diag`` through
+        the solver's apply (the DIA kernel on a band). The probe set is
+        fixed per solver, so likelihood differences across theta — what
+        optimizers and samplers consume — largely cancel its noise. The CG
+        preconditioner is the self-slot entry of the table at ``theta`` plus
+        ``diag`` (the masked-valid self slot: boundary rows of a band also
+        carry clipped, masked slots that point at the row)."""
         if self._direct_loglike is not None:
             return self._direct_loglike
-        raise _not_ported("loglike_fn on the iterative path",
-                          "slice B, item 7 (gp.log_prob_fn)")
+        n = self._x.shape[0]
+        rows = torch.arange(n, device=self.device)[:, None]
+        self_slot = torch.argmax(((self._nbr == rows) & self._mask).to(
+            torch.int8), dim=1)[:, None]
+        probes = self._probe_block(self.probes, self.seed)
+        nbr, mask, apply = self._nbr, self._mask, self._apply
+        cg = (apply, self._eff_tol, self.maxiter)
+        log_2pi = float(np.log(2.0 * np.pi))
+
+        def loglike(theta_k, diag, r):
+            vals = self._values(theta_k)
+            pdiag = (vals.gather(1, self_slot)[:, 0] + diag).detach()
+            z = _CgSolve.apply(vals, diag, r, pdiag, nbr, mask, *cg)
+            ld = _SlqLogdet.apply(vals, diag, probes, pdiag, nbr, mask,
+                                  apply, self.num_steps, *cg[1:])
+            return -0.5 * (torch.dot(r, z) + ld + n * log_2pi)
+
+        return loglike
 
     # -- protocol ----------------------------------------------------------
 

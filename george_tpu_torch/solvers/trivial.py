@@ -34,6 +34,9 @@ class TrivialSolver(object):
         y = np.asarray(y, dtype=np.float64)
         return float(np.sum(y * y * self._ivar))
 
+    def apply_sqrt(self, r):
+        return np.asarray(r) / np.sqrt(self._ivar)
+
     def apply_forward(self, y, i=0):
         if i != 0:
             raise ValueError("TrivialSolver has no kernel gradients")

@@ -108,10 +108,13 @@ def test_plain_panel_one_is_the_column_recurrence():
 
 
 # every shape the paths launch: the leaf kernel at the HODLR leaves (f32
-# and f64 at n = 1e5, f32 at n = 1e6) and the shapes checked on the card;
-# the tiled entry point at its timed and checked shapes
+# and f64 at n = 1e5, f32 at n = 1e6, 4 and 8 chains' leaves at n = 1e5
+# in one launch under vmap) and the shapes checked on the card; the tiled
+# entry point at its timed and checked shapes
 _PLAN_CASES = [
     (512, 196, torch.float32, False), (512, 196, torch.float64, False),
+    (2048, 196, torch.float32, False), (4096, 196, torch.float32, False),
+    (2048, 196, torch.float64, False), (4096, 196, torch.float64, False),
     (2048, 489, torch.float32, False), (64, 489, torch.float32, False),
     (32, 489, torch.float32, False), (16, 196, torch.float64, False),
     (4, 196, torch.float64, False), (4, 128, torch.float32, False),
@@ -324,3 +327,59 @@ def test_cuda_tiled_kernel_matches_plain(B, m, dtype, per_cta):
         L_ref.abs().max())
     assert float((L - L_ref).abs().max()) <= tol
     assert bool((torch.triu(L, 1) == 0).all())
+
+
+def _vmap_loss(L):
+    return torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1))) + (
+        0.01 * torch.sum(L ** 2))
+
+
+def test_vmap_folds_the_mapped_dimension_into_one_call(monkeypatch):
+    """Under ``torch.func.vmap`` a ``(C, B, m, m)`` batch is one call of the
+    forward on ``(C * B, m, m)``, and the value and ``vmap(grad)`` match the
+    per-member calls (CPU: the plain version; float64, 1e-12)."""
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(2), 24, 32,
+                                   dtype=np.float64)).reshape(3, 8, 32, 32)
+    calls = []
+    forward = tchol._forward
+    monkeypatch.setattr(tchol, "_forward",
+                        lambda X: calls.append(tuple(X.shape)) or forward(X))
+    L = torch.func.vmap(tchol.cholesky)(A)
+    assert calls == [(24, 32, 32)]
+    g = torch.func.vmap(torch.func.grad(
+        lambda M: _vmap_loss(tchol.cholesky(M))))(A)
+    assert calls[1:] == [(24, 32, 32)]
+    for c in range(3):
+        assert float((L[c] - tchol.cholesky(A[c])).abs().max()) <= 1e-12
+        gc = torch.func.grad(lambda M: _vmap_loss(tchol.cholesky(M)))(A[c])
+        assert float((g[c] - gc).abs().max()) <= 1e-12 * float(
+            gc.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_is_one_launch():
+    """On the card, ``vmap`` of the Cholesky over a ``(3, 8, 128, 128)``
+    batch is ONE kernel launch of 24 blocks; its value matches the three
+    per-member launches and its ``vmap(grad)`` the per-member gradients
+    (float32: 1e-5 of max|L|, 1e-4 of max|grad|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    A = torch.as_tensor(_spd_batch(np.random.default_rng(3), 24, 128,
+                                   dtype=np.float64)).to(
+        "cuda", torch.float32).reshape(3, 8, 128, 128)
+    before = tchol.chol_kernel_launches
+    L = torch.func.vmap(tchol.cholesky)(A)
+    torch.cuda.synchronize()
+    assert tchol.chol_kernel_launches == before + 1
+    g = torch.func.vmap(torch.func.grad(
+        lambda M: _vmap_loss(tchol.cholesky(M))))(A)
+    torch.cuda.synchronize()
+    assert tchol.chol_kernel_launches == before + 2
+    for c in range(3):
+        Lc = tchol.cholesky(A[c].contiguous())
+        assert float((L[c] - Lc).abs().max()) <= 1e-5 * float(
+            Lc.abs().max())
+        gc = torch.func.grad(lambda M: _vmap_loss(tchol.cholesky(M)))(
+            A[c].contiguous())
+        assert float((g[c] - gc).abs().max()) <= 1e-4 * float(
+            gc.abs().max())

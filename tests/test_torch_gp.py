@@ -14,6 +14,7 @@ measured 1.4e-6, held to 5e-6 (the JAX package's own layout-parity test
 holds its gradients to 1e-4).
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -251,11 +252,24 @@ def test_sparse_gp_matches_reference(direct):
 
 def test_entry_points_default_to_the_card():
     """``GP``, ``BasicSolver``, ``HODLRSolver`` and ``SparseSolver`` default
-    to ``device="cuda"`` (read from the attribute; no tensor is made)."""
+    to ``device="cuda"``, and so do the samplers for starting points given
+    as numpy arrays (read from the attribute; no tensor is made)."""
+    from george_tpu_torch import sampling
+
     k = _kernel(tgt)
     for obj in (tgt.GP(k), tgt.BasicSolver(k), tgt.HODLRSolver(k),
                 tgt.SparseSolver(k)):
         assert obj.device == torch.device("cuda")
+
+    def f(theta):
+        return -0.5 * torch.sum(theta ** 2)
+
+    for obj in (sampling.NUTS(f), sampling.HMC(f),
+                sampling.EnsembleSampler(4, 2, f), sampling.ADVI(f)):
+        assert obj.device == torch.device("cuda")
+    for fn in (sampling.sample_nuts, sampling.sample_hmc, sampling.fit_adam,
+               sampling.fit_advi, sampling.fit_advi_fullrank):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_spec_copy_is_identical():
@@ -286,6 +300,8 @@ def test_every_submodule_imports_with_jax_blocked():
         "for name in names: importlib.import_module(name)\n"
         "assert 'george_tpu_torch.ops.dia' in names\n"
         "assert 'george_tpu_torch.solvers.sparse' in names\n"
+        "assert 'george_tpu_torch.sampling.hmc' in names\n"
+        "assert 'george_tpu_torch.sampling.vi' in names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

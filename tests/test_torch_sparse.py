@@ -419,8 +419,13 @@ def test_solver_options_and_refusals():
     s = tgt.SparseSolver(k2, device=DEV)
     s.compute(x2, 0.3)                  # not banded: "auto" goes iterative
     assert s._dia_offsets is None and s._band_factors is None
-    with pytest.raises(NotImplementedError):
-        s.loglike_fn()
+    # the iterative path's fused likelihood (CG and SLQ with their
+    # adjoints, through the gather apply here) is the solver's likelihood
+    y2 = np.sin(x2[:, 0])
+    ll = s.loglike_fn()(s._theta, s._diag, torch.as_tensor(y2))
+    assert float(ll) == pytest.approx(
+        -0.5 * (s.dot_solve(y2) + s.log_determinant
+                + 64 * np.log(2 * np.pi)), rel=1e-8)
     Kinv = s.get_inverse()
     assert Kinv.shape == (64, 64)
     K = k2.get_value(x2) + 0.09 * np.eye(64)
