@@ -14,7 +14,10 @@ sizes the project benchmarks:
   diagonals;
 * the inference layer: NUTS at the n = 512 configuration of
   ``benchmarks/bench_nuts.py``, and ``GP.log_prob_fn`` on the two paths
-  above under the samplers and ``minimize``.
+  above under the samplers and ``minimize``;
+* the rest of the HODLR surface: the symmetric factorization and
+  ``GP.sample``, the factorization self-check, ``debug=True``, kNN-guided
+  pivots, and the multi-output LCM model at n = 1e5; sampler checkpoints.
 
 Phases:
 
@@ -60,6 +63,23 @@ Phases:
     samples, samples/s, acceptance, depth, divergence fraction, leapfrog
     steps, host reads, the posterior moments and a ``torch.profiler``
     window over 2 transitions (the dense path: no hand-written kernel).
+
+12. the symmetric HODLR factorization (``sym=True``), smooth n = 1e5,
+    float64 then float32: the anchor, the log-determinant against the SMW
+    cascade on the same pivots, ``W W^T`` against the compressed matvec,
+    the ``W^{-1}`` round trips, ``GP.sample`` at the computed points
+    (``apply_sqrt``), the symmetric Hutchinson gradient against the exact
+    float64 one, and the leaf kernel's launches;
+13. the factorization self-check on a non-decaying kernel (it must warn),
+    ``debug=True`` at n = 2e4 in float64 (the compression error against
+    the exact kernel, the dense gradient comparison) and kNN-guided pivots
+    (``knn=8``) at n = 1e5 in float32 against the anchor;
+14. the multi-output LCM model of ``examples/multioutput.py::at_scale`` at
+    n = 1e5 (2 tasks of 5e4 points) through the hierarchical solver, with
+    the task-1 prediction: rank 48 in float64 and float32, and rank 96 with
+    refinement in float64 (see ``phase_lcm`` for why);
+15. after each NUTS run, its final state through ``checkpoint`` and back,
+    bit for bit, and the ``diagnostics`` spans of the solvers' computes.
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
@@ -130,6 +150,18 @@ def check_anchor(name, ll, rel_tol, n):
         raise RuntimeError("%s: %.3e off the anchor (limit %.0e)"
                            % (name, rel, rel_tol))
     return rel
+
+
+def check_residual(name, solver, tol):
+    """The factorization self-check's one-probe solve residual, which the
+    first compute of a configuration measures."""
+    r = solver.factor_residual
+    log("%s: factorization self-check residual %s (limit %.0e)"
+        % (name, "not measured (memoized)" if r is None else "%.3e" % r, tol))
+    if r is None or not r <= tol:
+        raise RuntimeError("%s: self-check residual %r over %.0e"
+                           % (name, r, tol))
+    return r
 
 
 def sync(device):
@@ -425,6 +457,7 @@ def phase_slice_f32(device, n):
                     time.perf_counter() - t0))
     out["gp_rel"] = check_anchor("slice f32 GP.log_likelihood", ll,
                                  ANCHOR_F32, n)
+    out["factor_residual"] = check_residual("slice f32", gp.solver, 1e-2)
 
     pair, theta, xpad, valid, diag, r, st = _hutchinson_args(gp, y)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -571,6 +604,7 @@ def phase_slice_f64(device, n):
         % (time.perf_counter() - t0))
     out["gp_rel"] = check_anchor("slice f64 GP.log_likelihood", ll,
                                  ANCHOR_F64, n)
+    out["factor_residual"] = check_residual("slice f64", gp.solver, 1e-6)
 
     t0 = time.perf_counter()
     g = gp.grad_log_likelihood(y)
@@ -609,6 +643,7 @@ def phase_slice_f64(device, n):
     if not np.all(rel <= 1e-4):
         raise RuntimeError("exact gradient disagrees with finite differences")
     out["grad_fd_rel_max"] = float(rel.max())
+    out["grad"] = g.tolist()
     return out
 
 
@@ -1044,7 +1079,7 @@ def nuts_model(device, dtype):
     kernel = 0.5 * kernels.ExpSquaredKernel(1.3) * kernels.ExpSine2Kernel(
         gamma=2.0, log_period=0.0) + 0.1 * kernels.Matern32Kernel(2.0)
     gp = gtt.GP(kernel, white_noise=np.log(1e-4), fit_white_noise=True,
-                device=device, dtype=dtype)
+                verbose=True, device=device, dtype=dtype)
     gp.compute(x, 0.1)
     v0 = gp.get_parameter_vector()
     center = torch.as_tensor(v0, device=device, dtype=dtype)
@@ -1123,7 +1158,7 @@ def phase_nuts_512(dtype):
         [lambda: sample_nuts(2, log_prob, p0, num_warmup=1, num_samples=1,
                              **kw)], None,
         "nuts n=512 %s, 2 transitions" % name)
-    return out
+    return out, (samples, stats)
 
 
 def _recording_leaf_launches():
@@ -1330,7 +1365,360 @@ def phase_sparse_log_prob(data, ref):
     return out
 
 
+def phase_sym(device, n, dtype, g_exact):
+    """Symmetric HODLR (``sym=True``) at the smooth dataset: the anchor,
+    the log-determinant against the SMW cascade on the same pivots, ``W
+    W^T`` against the compressed matvec, the ``W^{-1}`` round trips,
+    ``GP.sample`` and the symmetric Hutchinson gradient against the exact
+    float64 gradient ``g_exact``."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.ops import chol
+    from george_tpu_torch.solvers import hodlr as H
+
+    name = str(dtype).split(".")[-1]
+    f64 = dtype == torch.float64
+    x, y, yerr, kernel = smooth_dataset(n)
+    out = {}
+    # a fresh memo, so that this solver's self-check runs
+    gtt.HODLRSolver._checked_configs.clear()
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                sym=True, verbose=True, device=device, dtype=dtype)
+    sync(device)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync(device)
+    out["sym_compute_s"] = time.perf_counter() - t0
+    s = gp.solver
+    out["factor_residual"] = check_residual("sym %s" % name, s,
+                                            1e-6 if f64 else 1e-2)
+    ll = gp.log_likelihood(y)
+    out["anchor_rel"] = check_anchor("sym %s GP.log_likelihood" % name, ll,
+                                     ANCHOR_F64 if f64 else ANCHOR_F32, n)
+
+    # the SMW cascade on the same data; its ACA walk runs on the host in
+    # float64, so it picks the same pivots
+    gpn = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                 verbose=True, device=device, dtype=dtype)
+    sync(device)
+    t0 = time.perf_counter()
+    gpn.compute(x, yerr)
+    sync(device)
+    out["nonsym_compute_s"] = time.perf_counter() - t0
+    sn, st = gpn.solver, s._struct
+    if not all(np.array_equal(st.flat[k], sn._struct.flat[k])
+               for k in ("rp_all", "cp_all")):
+        raise RuntimeError("sym %s: the two solvers' pivots differ" % name)
+    out["logdet_rel_vs_smw"] = abs(s.log_determinant - sn.log_determinant
+                                   ) / abs(sn.log_determinant)
+    tol = 1e-9 if f64 else 1e-4
+    log("sym %s: log-determinant %.10f, SMW %.10f, rel %.3e (limit %.0e)"
+        % (name, s.log_determinant, sn.log_determinant,
+           out["logdet_rel_vs_smw"], tol))
+    if not out["logdet_rel_vs_smw"] <= tol:
+        raise RuntimeError("sym %s: log-determinant off the SMW one" % name)
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    V = torch.randn((8, st.n_pad), generator=gen, device=device,
+                    dtype=dtype) * s._valid
+    with torch.no_grad():
+        WWtV = H._sqrt_matvec_t(
+            s._factors, st, H._sqrt_matvec_t(s._factors, st, V,
+                                             transpose=True))
+        KV = H._matvec_factors_t(sn._factors, st, V)
+    out["wwt_rel"] = float(torch.linalg.vector_norm(WWtV - KV)
+                           / torch.linalg.vector_norm(KV))
+    tol = 1e-8 if f64 else 1e-3
+    log("sym %s: W (W^T V) against the compressed matvec, 8 probes, rel "
+        "%.3e (limit %.0e)" % (name, out["wwt_rel"], tol))
+    if not out["wwt_rel"] <= tol:
+        raise RuntimeError("sym %s: W W^T is not the compressed operator"
+                           % name)
+    del WWtV, KV, V
+
+    # the two factorizations alone, warm (a first call of a library
+    # routine pays its set-up), each between synchronizations, best of 3;
+    # their leaf launches are timing, not the path's, and leave the count
+    launches = chol.chol_kernel_launches
+    args = (kernel.pair_fn, s._theta, s._xpad, s._valid, s._diag_pad, st)
+    for key, fn in (("sym_factor_ms", H.hodlr_factor_sym),
+                    ("smw_factor_ms", H.hodlr_factor)):
+        times = []
+        with torch.no_grad():
+            for _ in range(4):
+                sync(device)
+                t0 = time.perf_counter()
+                fn(*args)
+                sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[key] = min(times[1:])
+    chol.chol_kernel_launches = launches
+    log("sym %s: factorization alone, warm, best of 3: symmetric %.3f ms, "
+        "SMW %.3f ms" % (name, out["sym_factor_ms"], out["smw_factor_ms"]))
+    del gpn, sn
+
+    Vh = np.random.default_rng(4).standard_normal((n, 4))
+    for transpose, label in ((False, "W^{-1} W"), (True, "W^{-T} W^T")):
+        back = s._apply_sym_W(s._apply_sym_W(Vh, False, transpose), True,
+                              transpose)
+        r = float(np.linalg.norm(back - Vh) / np.linalg.norm(Vh))
+        out["roundtrip_rel_" + ("T" if transpose else "N")] = r
+        log("sym %s: %s round trip, 4 columns, rel %.3e (limit %.0e)"
+            % (name, label, r, tol))
+        if not r <= tol:
+            raise RuntimeError("sym %s: %s round trip failed" % (name, label))
+
+    R = np.random.default_rng(5).standard_normal((8, n))
+    times = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        s.apply_sqrt(R)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["apply_sqrt_ms_8_rows"] = min(times)
+    np.random.seed(0)
+    draws = gp.sample(size=8)
+    if draws.shape != (8, n) or not np.all(np.isfinite(draws)):
+        raise RuntimeError("sym %s: GP.sample gave %s draws"
+                           % (name, draws.shape))
+    out["sample_sd"] = float(draws.std())
+    log("sym %s: compute %.3f s (SMW compute %.3f s), apply_sqrt of 8 rows "
+        "%.3f ms (best of 3, host clock with the copies), GP.sample(8) "
+        "finite, sd %.4f"
+        % (name, out["sym_compute_s"], out["nonsym_compute_s"],
+           out["apply_sqrt_ms_8_rows"], out["sample_sd"]))
+
+    gh = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                sym=True, grad_mode="hutchinson", num_probes=64,
+                device=device, dtype=dtype)
+    gh.compute(x, yerr)
+    t0 = time.perf_counter()
+    g = gh.grad_log_likelihood(y)
+    out["sym_hutchinson_s"] = time.perf_counter() - t0
+    g_exact = np.asarray(g_exact)
+    ok = np.allclose(g, g_exact, rtol=0.2, atol=0.5)
+    out["sym_hutchinson_rel"] = (np.abs(g - g_exact) / np.abs(g_exact)
+                                 ).tolist()
+    log("sym %s: symmetric Hutchinson gradient (64 probes, %.3f s) %s; "
+        "exact f64 %s; rel %s (bounds rtol 0.2, atol 0.5)"
+        % (name, out["sym_hutchinson_s"], np.array2string(g),
+           np.array2string(g_exact),
+           np.array2string(np.asarray(out["sym_hutchinson_rel"]))))
+    if not ok:
+        raise RuntimeError("sym %s: Hutchinson gradient off the exact one"
+                           % name)
+    return out
+
+
+def phase_selfcheck_knn(device, n_debug, n_knn):
+    """The self-check on a non-decaying kernel (it must warn), ``debug=True``
+    with the Hutchinson gradient at ``n_debug`` (2e4) in float64, and
+    ``knn=8`` at ``n_knn`` (1e5) in float32 against the anchor."""
+    import warnings
+
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch import kernels
+
+    out = {}
+    rng = np.random.default_rng(0)
+    xp = np.sort(rng.uniform(0, 10, 240))
+    gtt.HODLRSolver._checked_configs.clear()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        gp = gtt.GP(0.2 * kernels.PolynomialKernel(log_sigma2=0.0, order=3),
+                    solver=gtt.HODLRSolver, min_size=32, rank=24,
+                    device=device, dtype=torch.float64)
+        gp.compute(xp, 0.25)
+    warned = any("self-check" in str(w.message) for w in caught)
+    out["nondecaying_residual"] = gp.solver.factor_residual
+    log("self-check, Polynomial(order 3) n=240 f64: warned %s, residual "
+        "%.3e (must exceed 1e-6)" % (warned, out["nondecaying_residual"]))
+    if not (warned and out["nondecaying_residual"] > 1e-6):
+        raise RuntimeError("the self-check missed the non-decaying kernel")
+
+    n = n_debug
+    x, y, yerr, kernel = smooth_dataset(n)
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                debug=True, grad_mode="hutchinson", verbose=True,
+                device=device, dtype=torch.float64)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync(device)
+    out["debug_compute_s"] = time.perf_counter() - t0
+    out["compression_error"] = gp.solver.compression_error
+    t0 = time.perf_counter()
+    gp.grad_log_likelihood(y)
+    sync(device)
+    out["debug_grad_s"] = time.perf_counter() - t0
+    rep = gp.debug_gradient
+    log("debug n=%d f64: compute with the check %.3f s, compression error "
+        "%.3e (limit 1e-6); gradient with the dense comparison %.3f s, "
+        "max|exact - estimated| %s"
+        % (n, out["debug_compute_s"], out["compression_error"],
+           out["debug_grad_s"],
+           None if rep is None else "%.4f" % rep["max_abs_delta"]))
+    if not (out["compression_error"] is not None
+            and out["compression_error"] < 1e-6 and rep is not None):
+        raise RuntimeError("debug=True did not report its errors")
+    out["debug_max_abs_delta"] = rep["max_abs_delta"]
+    del gp
+
+    x, y, yerr, kernel = smooth_dataset(n_knn)
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                knn=8, device=device, dtype=torch.float32)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    ll = gp.log_likelihood(y)
+    sync(device)
+    out["knn_s"] = time.perf_counter() - t0
+    log("knn=8 f32: compute + log_likelihood %.3f s" % out["knn_s"])
+    out["knn_anchor_rel"] = check_anchor("knn=8 f32 GP.log_likelihood", ll,
+                                         ANCHOR_F32, n_knn)
+    return out
+
+
+def lcm_dataset(n_total):
+    """``examples/multioutput.py::at_scale``'s model and data, same numpy
+    stream: x (coordinate, task id), y, yerr, kernel."""
+    from george_tpu_torch import kernels
+
+    rng = np.random.default_rng(11)
+    n_per = n_total // 2
+    xs = np.sort(rng.uniform(0, 200.0, n_per))
+    latent = np.sin(0.3 * xs)
+    y0 = 1.0 * latent + 0.1 * rng.standard_normal(n_per)
+    y1 = 0.6 * latent + 0.1 * rng.standard_normal(n_per)
+    x = np.concatenate([np.stack([xs, np.zeros(n_per)], axis=1),
+                        np.stack([xs, np.ones(n_per)], axis=1)])
+    y = np.concatenate([y0, y1])
+    kernel = kernels.LCMKernel(
+        logBK=np.log([1.0, 0.6, 0.05, 0.05]),
+        children=[kernels.ExpSquaredKernel(metric=10.0)], T=2, Q=1, ndim=1)
+    return x, y, 0.1, kernel
+
+
+def phase_lcm(device, n):
+    """The multi-output LCM model at scale through the hierarchical solver
+    (``min_size`` 128), three runs at ``n``: the example's rank 48 in
+    float64 and in float32, and rank 96 with two refinement steps in
+    float64.
+
+    At n = 1e5 the example's data is ten times denser than at its own
+    size (1e4), and its covariance (noise variance 0.01 under ~2000 points
+    per correlation length) is so ill-conditioned that rank 48's
+    compression error moves the task-1 prediction past the example's bound
+    (an RMSE of 0.05) while its solves stay accurate, and float32 breaks
+    the SMW cascade. So the example's accuracy is held at rank 96 with
+    refinement (RMSE below 0.05, self-check residual below 1e-6); rank 48's
+    numbers are printed; and a float32 result must be accurate (within
+    2e-3 of float64) or flagged by the self-check (residual over 1e-2),
+    never silently wrong."""
+    import warnings
+
+    import torch
+    import george_tpu_torch as gtt
+
+    x, y, yerr, kernel = lcm_dataset(n)
+    t = np.linspace(5, 195, 200)
+    t1 = np.stack([t, np.ones_like(t)], axis=1)
+    out = {}
+    runs = (("float64_rank48", torch.float64, 48, "auto"),
+            ("float32_rank48", torch.float32, 48, "auto"),
+            ("float64_rank96_refine2", torch.float64, 96, 2))
+    for name, dtype, rank, refine in runs:
+        gtt.HODLRSolver._checked_configs.clear()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128,
+                        rank=rank, refine_steps=refine, verbose=True,
+                        device=device, dtype=dtype)
+            sync(device)
+            t0 = time.perf_counter()
+            gp.compute(x, yerr)
+            sync(device)
+            compute_s = time.perf_counter() - t0
+        flagged = any("self-check" in str(w.message) for w in caught)
+        t0 = time.perf_counter()
+        ll = gp.log_likelihood(y)
+        sync(device)
+        ll_s = time.perf_counter() - t0
+        mu1 = gp.predict(y, t1, return_cov=False)
+        rmse = float(np.sqrt(np.mean((mu1 - 0.6 * np.sin(0.3 * t)) ** 2)))
+        st = gp.solver._struct
+        out[name] = {"ll": ll, "compute_s": compute_s,
+                     "log_likelihood_s": ll_s, "rmse_task1": rmse,
+                     "factor_residual": gp.solver.factor_residual,
+                     "self_check_warned": flagged}
+        log("lcm n=%d %s (L=%d, %d leaves of %d, rank %d, refine %s): "
+            "compute %.3f s, log_likelihood %.3f s, ll %.6f, task-1 "
+            "prediction RMSE %.4f, self-check residual %.3e (warned %s)"
+            % (n, name, st.L, st.n_pad // st.m, st.m, st.rank, refine,
+               compute_s, ll_s, ll, rmse, gp.solver.factor_residual,
+               flagged))
+        if not np.isfinite(ll) or gp.solver.factor_residual is None:
+            raise RuntimeError("lcm %s: no finite likelihood or no "
+                               "self-check" % name)
+        del gp
+    ok = out["float64_rank96_refine2"]
+    if not (ok["rmse_task1"] < 0.05 and ok["factor_residual"] <= 1e-6):
+        raise RuntimeError("lcm: rank 96 misses the example's RMSE bound")
+    f32 = out["float32_rank48"]
+    out["ll_rel_f32_vs_f64"] = abs(f32["ll"] - out["float64_rank48"]["ll"]
+                                   ) / abs(out["float64_rank48"]["ll"])
+    log("lcm: f32 log-likelihood %.3e from f64 at rank 48; f32 flagged by "
+        "the self-check %s (an f32 result must be within 2e-3 or flagged)"
+        % (out["ll_rel_f32_vs_f64"], f32["factor_residual"] > 1e-2))
+    if not (out["ll_rel_f32_vs_f64"] <= 2e-3
+            or (f32["factor_residual"] > 1e-2 and f32["self_check_warned"])):
+        raise RuntimeError("lcm: f32 silently off f64")
+    return out
+
+
+def phase_checkpoint(samples, stats, seed):
+    """The NUTS run's final state through ``checkpoint`` (the flat
+    ``.npz``) and back, bit for bit; and ``diagnostics`` holding the
+    solvers' compute spans of the phases above."""
+    import tempfile
+
+    from george_tpu_torch import checkpoint, diagnostics
+
+    state = checkpoint.sampler_state(
+        samples[-1], stats["logp"][-1], seed, step=len(samples),
+        step_size=stats["step_size"], inv_mass=stats["inv_mass"],
+        extras={"draws": samples, "logp": stats["logp"]})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = checkpoint.save(os.path.join(tmp, "nuts_512"), state)
+        size = os.path.getsize(path)
+        back = checkpoint.restore_sampler(path)
+
+    def same(a, b):
+        b = b.detach().cpu().numpy()
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    checks = {
+        "draws": same(back["extras"]["draws"], samples),
+        "log_probs": same(back["extras"]["logp"], stats["logp"]),
+        "walkers": same(back["walkers"], samples[-1]),
+        "step_size": same(back["step_size"], stats["step_size"]),
+        "inv_mass": all(same(back["inv_mass"][k], stats["inv_mass"][k])
+                        for k in ("sigma", "chol")),
+        "seed": int(back["key"]) == seed,
+    }
+    rep = diagnostics.report()
+    spans = {k: rep[k] for k in ("hodlr.compute", "basic.compute")
+             if k in rep}
+    log("checkpoint: %d draws of %d chains, %d bytes, back bit for bit: %s; "
+        "diagnostics spans %s"
+        % (samples.shape[0], samples.shape[1], size, checks,
+           json.dumps(spans)))
+    if not all(checks.values()) or len(spans) != 2:
+        raise RuntimeError("checkpoint or diagnostics failed")
+    return {"bytes": size, "checks": checks, "spans": spans}
+
+
 def main():
+    t_start = time.perf_counter()
     smi = phase_device()
     import torch
     from george_tpu_torch.ops import chol, dia
@@ -1375,6 +1763,36 @@ def main():
                            "kernel")
     torch.cuda.empty_cache()
 
+    # the symmetric factorization and GP.sample, float64 then float32
+    chol.chol_kernel_launches = 0
+    sym = {str(dt).split(".")[-1]: phase_sym(device, N_MAIN, dt, f64["grad"])
+           for dt in (torch.float64, torch.float32)}
+    launches_sym = chol.chol_kernel_launches
+    log("sym: leaf Cholesky kernel launches %d (%.1f s into the run)"
+        % (launches_sym, time.perf_counter() - t_start))
+    if launches_sym == 0:
+        raise RuntimeError("the sym path never launched the leaf kernel")
+    torch.cuda.empty_cache()
+
+    chol.chol_kernel_launches = 0
+    selfcheck = phase_selfcheck_knn(device, 20_000, N_MAIN)
+    launches_selfcheck = chol.chol_kernel_launches
+    log("self-check, debug and knn: leaf Cholesky kernel launches %d"
+        % launches_selfcheck)
+    if launches_selfcheck == 0:
+        raise RuntimeError("the self-check and knn paths never launched the "
+                           "leaf kernel")
+    torch.cuda.empty_cache()
+
+    chol.chol_kernel_launches = 0
+    lcm = phase_lcm(device, N_MAIN)
+    launches_lcm = chol.chol_kernel_launches
+    log("lcm: leaf Cholesky kernel launches %d (%.1f s into the run)"
+        % (launches_lcm, time.perf_counter() - t_start))
+    if launches_lcm == 0:
+        raise RuntimeError("the LCM path never launched the leaf kernel")
+    torch.cuda.empty_cache()
+
     data = (x, y, yerr, kernel)
     dia.dia_kernel_launches = 0
     direct = phase_sparse_direct(data)
@@ -1407,8 +1825,13 @@ def main():
     ell = phase_ell_2d()
 
     # the inference layer on the dense path (no hand-written kernel on it)
-    nuts = {str(dt).split(".")[-1]: phase_nuts_512(dt)
-            for dt in (torch.float64, torch.float32)}
+    log("nuts: starting %.1f s into the run" % (time.perf_counter() - t_start))
+    nuts, ckpt = {}, {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).split(".")[-1]
+        nuts[name], (samples, stats) = phase_nuts_512(dt)
+        ckpt[name] = phase_checkpoint(samples, stats, 0)
+        del samples, stats
 
     log(json.dumps({"summary": {
         "build_s": build_s, "cusolver_ms": kern["cusolver_ms"],
@@ -1416,7 +1839,9 @@ def main():
         "f32": f32, "f64": f64, "dia_kernel": kdia, "tiled_kernel": tile,
         "sparse_direct": direct, "sparse_iterative": it,
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
-        "sparse_log_prob": sparse_lp}}))
+        "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
+        "lcm": lcm, "checkpoint": ckpt,
+        "seconds": time.perf_counter() - t_start}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library
     t, t2 = sorted((tile["8x128"], tile["1024x64"]),
@@ -1444,7 +1869,10 @@ def main():
          "library_ms_2048x489_f32": k489["library_ms"],
          "max_abs_err_2048x489_f32": k489["max_abs_err"],
          "launches_chain_batched": launches_chains,
-         "chain_batched_launch_B": chains["leaf_launch_batch"]},
+         "chain_batched_launch_B": chains["leaf_launch_batch"],
+         "launches_sym_path": launches_sym,
+         "launches_lcm_path": launches_lcm,
+         "launches_selfcheck_knn_path": launches_selfcheck},
         {"name": "dia_matvec", "route": "cuda",
          "source": "george_tpu_torch/csrc/dia.cu",
          "replaces": "george_tpu/ops/dia.py:96",

@@ -4,18 +4,22 @@
 Two paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
 
 * the hierarchical (HODLR) marginal log-likelihood: the kernel zoo
-  generated from the same YAML specs, the HODLR solver in its transposed
-  cascade layout with exact-autograd and Hutchinson gradients;
+  generated from the same YAML specs with the multi-output ``LCMKernel``,
+  the HODLR solver in its transposed cascade layout with exact-autograd
+  and Hutchinson gradients, its symmetric ``K = W W^T`` factorization
+  (``apply_sqrt``, ``sym=True``), kNN-guided pivots and the factorization
+  self-check;
 * the compact-support sparse solver for ``WendlandC2Kernel``: CG + SLQ with
   Hutchinson gradients over a banded (DIA) or padded-neighbor (ELL)
   layout, and the exact block-tridiagonal Cholesky on sorted 1-D data;
 
 with the dense and trivial solvers, the ``GP`` object, and the inference
 layer (``sampling``: NUTS/HMC over batched chains, the ensemble sampler,
-ADVI, L-BFGS-B and Adam, all driven by ``GP.log_prob_fn``). The kernels on
-CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``: the
-panel-blocked leaf Cholesky and its tiled launch plan, the DIA matvec),
-built from source at first use.
+ADVI, L-BFGS-B and Adam, all driven by ``GP.log_prob_fn``), checkpoints
+of sampler state (``checkpoint``) and timing spans (``diagnostics``). The
+kernels on CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``:
+the panel-blocked leaf Cholesky and its tiled launch plan, the DIA
+matvec), built from source at first use.
 
 The package imports ``torch``, ``numpy`` and ``scipy`` only — never JAX or
 the JAX package. The solvers and the GP take ``device=`` (default
@@ -37,6 +41,8 @@ torch.set_float32_matmul_precision("highest")
 
 __version__ = "0.1.0"
 
+from . import checkpoint  # noqa: E402,F401
+from . import diagnostics  # noqa: E402,F401
 from . import kernels  # noqa: E402,F401
 from . import metrics  # noqa: E402,F401
 from . import modeling  # noqa: E402,F401
@@ -61,6 +67,8 @@ __all__ = [
     "TrivialSolver",
     "HODLRSolver",
     "SparseSolver",
+    "checkpoint",
+    "diagnostics",
     "kernels",
     "metrics",
     "modeling",

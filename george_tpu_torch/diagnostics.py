@@ -1,0 +1,122 @@
+# -*- coding: utf-8 -*-
+"""Structured timing and profiling (PyTorch port of
+``george_tpu/diagnostics.py``), zero-cost when off:
+
+* :class:`timer` — a context manager accumulating named wall-clock spans
+  into a process-wide registry, synchronized with the device when a result
+  is marked with :meth:`timer.sync`;
+* :func:`report` — the collected spans; :func:`reset` clears them;
+* :func:`trace` — a ``torch.profiler`` trace of the host and the card;
+* :func:`annotate` — a named region in such a trace;
+* the solvers' ``verbose=True`` prints go through :func:`log_span`.
+
+The registry layout, ``{name: (count, total_s, best_s)}``, and the names
+are the JAX module's.
+"""
+
+import contextlib
+import os
+import tempfile
+import time
+
+import torch
+
+__all__ = ["timer", "report", "reset", "trace", "log_span", "annotate"]
+
+_REGISTRY = {}
+
+
+def _cuda_devices(value, out):
+    """The CUDA devices of the tensors in ``value`` (a tensor, or nested
+    tuples, lists and dicts of them)."""
+    if isinstance(value, torch.Tensor):
+        if value.is_cuda:
+            out.add(value.device)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _cuda_devices(v, out)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            _cuda_devices(v, out)
+    return out
+
+
+class timer(object):
+    """``with timer("hodlr.factor") as tm: out = tm.sync(f(...))`` —
+    accumulate a named span.
+
+    A value marked with :meth:`sync` (a tensor, or nested tuples, lists
+    and dicts of tensors) has its CUDA devices synchronized before the
+    clock stops, so device work is included; CPU tensors need no wait.
+    """
+
+    def __init__(self, name, verbose=False):
+        self.name = name
+        self.verbose = verbose
+        self._sync = None
+
+    def sync(self, value):
+        """Mark a value to synchronize on at exit; returns it unchanged."""
+        self._sync = value
+        return value
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._sync is not None:
+            for device in _cuda_devices(self._sync, set()):
+                torch.cuda.synchronize(device)
+        dt = time.perf_counter() - self._t0
+        count, total, best = _REGISTRY.get(self.name, (0, 0.0, float("inf")))
+        _REGISTRY[self.name] = (count + 1, total + dt, min(best, dt))
+        if self.verbose:
+            log_span(self.name, dt)
+        return False
+
+
+def log_span(name, seconds):
+    print("[george-tpu] {0}: {1:.4f} s".format(name, seconds), flush=True)
+
+
+def report():
+    """``{name: {"count", "total_s", "mean_s", "best_s"}}`` for all spans."""
+    return {
+        name: {
+            "count": c,
+            "total_s": t,
+            "mean_s": t / c if c else 0.0,
+            "best_s": b,
+        }
+        for name, (c, t, b) in _REGISTRY.items()
+    }
+
+
+def reset():
+    _REGISTRY.clear()
+
+
+@contextlib.contextmanager
+def trace(log_dir=None):
+    """``torch.profiler`` trace of the block, host and (where there is one)
+    the card, written as ``trace.json`` under ``log_dir`` (default: a
+    ``george_tpu_torch_trace`` folder in the temporary directory) for
+    ``chrome://tracing`` or Perfetto; yields ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "george_tpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name):
+    """Named region (a context manager) that shows up in profiler
+    traces."""
+    return torch.profiler.record_function(name)

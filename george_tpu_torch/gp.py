@@ -602,9 +602,82 @@ class GP(ModelSet):
             if quiet:
                 return np.zeros(len(self), dtype=np.float64)
             raise
-        return self.solver.grad_log_likelihood(
+        g = self.solver.grad_log_likelihood(
             self, self._x, alpha, self.unfrozen_mask
         )
+        if getattr(self.solver, "debug", False):
+            self._debug_gradient_check(y, g)
+        return g
+
+    def _debug_gradient_check(self, y, g_est):
+        """Under the solver's ``debug``: the dense exact gradient beside the
+        matrix-free estimate, so the compression and Monte-Carlo error of
+        the estimate is visible (``debug_gradient``; printed when the
+        solver is ``verbose``). It assembles dense ``(n, n)`` matrices, in
+        float64 on the GP's device, and is skipped with a warning above
+        n = 20000."""
+        n = len(self._x)
+        self.debug_gradient = None
+        if n > 20000:
+            warnings.warn(
+                "debug gradient comparison skipped at n=%d (it "
+                "materializes dense O(n^2) matrices)" % n
+            )
+            return None
+        f64, dev = torch.float64, self.device
+        x = torch.as_tensor(self._x, dtype=f64, device=dev)
+        theta = torch.as_tensor(self.kernel.parameter_vector, dtype=f64,
+                                device=dev)
+        diag = torch.as_tensor(
+            self._yerr2 + np.exp(self._call_white_noise(self._x)),
+            dtype=f64, device=dev)
+        r = torch.as_tensor(
+            np.asarray(self._check_dimensions(y), dtype=np.float64)
+            - self._call_mean(self._x), dtype=f64, device=dev)
+        with torch.no_grad():
+            K = self.kernel.gram(theta, x, x)
+            K.diagonal().add_(diag)
+            L = torch.linalg.cholesky(K)
+            del K
+            alpha = torch.cholesky_solve(r[:, None], L)[:, 0]
+            # the information matrix a a^T - K^{-1}, of which every
+            # gradient piece is a contraction
+            info = torch.outer(alpha, alpha) - torch.cholesky_inverse(L)
+            del L
+        alpha_h = alpha.cpu().numpy()
+        pieces = []
+        if len(self.mean):
+            pieces.append(self._call_mean_gradient(self._x) @ alpha_h)
+        if len(self.white_noise):
+            scale = np.exp(self._call_white_noise(self._x)) * (
+                info.diagonal().cpu().numpy())
+            pieces.append(
+                0.5 * self._call_white_noise_gradient(self._x) @ scale)
+        if len(self.kernel):
+            # one forward-mode derivative of the gram per active parameter
+            g_kernel = []
+            for i in np.flatnonzero(self.kernel.unfrozen_mask):
+                tangent = torch.zeros_like(theta)
+                tangent[i] = 1.0
+                _, dK = torch.func.jvp(
+                    lambda th: self.kernel.gram(th, x, x), (theta,),
+                    (tangent,))
+                g_kernel.append(0.5 * float(torch.sum(dK * info)))
+                del dK
+            pieces.append(np.asarray(g_kernel))
+        g_exact = np.concatenate(pieces) if pieces else np.empty(0)
+        g_est = np.asarray(g_est, dtype=np.float64)
+        rep = {
+            "exact": g_exact,
+            "estimated": g_est,
+            "max_abs_delta": float(np.max(np.abs(g_exact - g_est)))
+            if g_exact.size else 0.0,
+        }
+        self.debug_gradient = rep
+        if getattr(self.solver, "verbose", False):
+            print(g_exact, "grad_exact")
+            print(g_est, "grad_estimated")
+        return rep
 
     def nll(self, vector, y, quiet=True):
         """Negative log-likelihood at ``vector`` (optimizer objective)."""

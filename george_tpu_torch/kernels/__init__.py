@@ -2,9 +2,9 @@
 """The kernel zoo: DSL-generated torch kernels plus composition operators.
 
 Every spec-generated kernel of the JAX package with ``+`` / ``*`` algebra,
-three metric types, axis subspaces and per-axis blocks, and the hand-written
-compact-support ``WendlandC2Kernel`` (``custom.py``). The ``kind: custom``
-LCM kernel is not ported yet.
+three metric types, axis subspaces and per-axis blocks, and the two
+hand-written ``kind: custom`` kernels (``custom.py``): the multi-output
+``LCMKernel`` and the compact-support ``WendlandC2Kernel``.
 """
 
 from .base import (  # noqa: F401
@@ -17,7 +17,12 @@ from .base import (  # noqa: F401
 )
 from .generated import *  # noqa: F401,F403  (XKernel + BaseXKernel pairs)
 from .generated import __all__ as _generated_all
-from .custom import WendlandC2Kernel, BaseWendlandC2Kernel  # noqa: F401
+from .custom import (  # noqa: F401
+    LCMKernel,
+    BaseLCMKernel,
+    WendlandC2Kernel,
+    BaseWendlandC2Kernel,
+)
 
-__all__ = ["Kernel", "Sum", "Product", "WendlandC2Kernel",
-           "BaseWendlandC2Kernel"] + list(_generated_all)
+__all__ = ["Kernel", "Sum", "Product", "LCMKernel", "BaseLCMKernel",
+           "WendlandC2Kernel", "BaseWendlandC2Kernel"] + list(_generated_all)

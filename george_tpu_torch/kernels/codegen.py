@@ -10,8 +10,8 @@ The spec bodies use only ``jnp.exp``/``jnp.sin``/``jnp.cos``, ``safe_sqrt``
 and ``M_PI``; the ``jnp.`` namespace maps to ``torch.``, and any other
 ``jnp`` use is refused so that a new spec cannot slip an untranslated op
 into the port. ``kind: custom`` specs (LCM, WendlandC2) are hand-written
-modules and are not generated here: the port's WendlandC2 is in
-``kernels/custom.py``; LCM is not ported yet.
+modules and are not generated here: the port's are in
+``kernels/custom.py``.
 
 The generated file is checked in, so nothing at run time needs ``yaml``;
 only this tool imports it, inside :func:`main`.

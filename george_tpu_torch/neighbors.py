@@ -6,13 +6,15 @@ normalization (the part of ``george_tpu/neighbors.py`` that ``GP.compute``,
 All of it runs once per dataset on the host, in numpy; only the resulting
 index structures (CSR arrays, permutations) cross to the device. The radius
 query is ``scipy.spatial.cKDTree`` (the JAX package's fallback; its in-tree
-C++ kd-tree is not needed here).
+C++ kd-tree is not needed here); so are the kNN query and the
+distance ordering.
 """
 
 import numpy as np
 
 __all__ = ["radius_neighbors_csr", "ragged_to_csr", "knn_matrix_to_csr",
-           "normalize_nns", "morton_sort_samples"]
+           "normalize_nns", "knn_indices", "nd_sort_samples",
+           "morton_sort_samples"]
 
 
 def _pairs_to_csr(rows, cols, n):
@@ -105,6 +107,28 @@ def normalize_nns(nns):
     ):
         return ragged_to_csr(nns)
     return nns
+
+
+def knn_indices(x, k):
+    """Indices ``(n, k)`` of the ``k`` nearest neighbors of each point
+    (self included), nearest first."""
+    from scipy.spatial import cKDTree
+
+    x = np.ascontiguousarray(np.atleast_2d(x), dtype=np.float64)
+    _, idx = cKDTree(x).query(x, k=int(k))
+    return np.atleast_2d(idx).astype(np.int64)
+
+
+def nd_sort_samples(samples):
+    """The permutation that orders the samples by distance from
+    ``samples[0]``, in kd-tree query order."""
+    from scipy.spatial import cKDTree
+
+    samples = np.ascontiguousarray(samples, dtype=np.float64)
+    if samples.ndim != 2:
+        raise ValueError("samples must be a 2-D array")
+    _, i = cKDTree(samples).query(samples[0], k=len(samples))
+    return i
 
 
 def morton_sort_samples(samples, bits=21):

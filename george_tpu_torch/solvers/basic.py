@@ -6,6 +6,7 @@ assemble ``K + diag`` with the kernel's block function and factor it with
 import numpy as np
 import torch
 
+from ..diagnostics import timer
 from .linalg import as_points, cholesky_factor, chol_solve
 
 __all__ = ["BasicSolver"]
@@ -15,14 +16,17 @@ class BasicSolver(object):
     """Dense exact solver with a Cholesky factorization of ``K + diag``.
 
     :param kernel: the covariance kernel.
+    :param verbose: print the ``basic.compute`` span (it is registered in
+        ``diagnostics`` either way).
     :param device: torch device the factorization lives on (default
         ``"cuda"``; pass ``"cpu"`` explicitly on a host without a card).
     :param dtype: working dtype (default ``torch.float64``).
     """
 
-    def __init__(self, kernel, device="cuda", dtype=torch.float64,
-                 **kwargs):
+    def __init__(self, kernel, verbose=False, device="cuda",
+                 dtype=torch.float64, **kwargs):
         self.kernel = kernel
+        self.verbose = bool(verbose)
         self.device = torch.device(device)
         self.dtype = dtype
         self.computed = False
@@ -47,9 +51,10 @@ class BasicSolver(object):
             yerr2 = yerr2 * np.ones(len(x))
         self._x = self._tensor(x)
         self._yerr2 = self._tensor(yerr2)
-        with torch.no_grad():
-            K = self.kernel.gram(self._theta(), self._x, self._x)
-            L = cholesky_factor(K, self._yerr2)
+        with timer("basic.compute", verbose=self.verbose) as tm:
+            with torch.no_grad():
+                K = self.kernel.gram(self._theta(), self._x, self._x)
+                L = tm.sync(cholesky_factor(K, self._yerr2))
         self._L = L
         self.log_determinant = float(2.0 * torch.sum(torch.log(
             torch.diagonal(L))))

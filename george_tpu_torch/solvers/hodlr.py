@@ -27,24 +27,37 @@ of the compressed likelihood; :func:`hodlr_loglike_and_grad_hutchinson`
 is the forward-mode, matrix-free alternative (exact quadratic terms,
 Hutchinson traces) from ``torch.func.jvp`` of the compressed matvec.
 
-Points are pre-sorted host-side (``neighbors.morton_sort_samples``) so
-off-diagonal blocks are numerically low-rank; the skeleton pivots are
-static indices chosen once per ``compute`` on the host.
+The symmetric variant :func:`hodlr_factor_sym` factors the same
+compressed operator as ``K = W W^T`` (the same leaf Cholesky, then one
+orthonormalized symmetric node per sibling pair and level), for prior
+draws (``apply_sqrt``), ``sym=True`` solves and the symmetric Hutchinson
+estimator.
+
+Points are pre-sorted host-side (``neighbors.morton_sort_samples``, on the
+kernel's ``sort_axes`` where it declares them) so off-diagonal blocks are
+numerically low-rank; the skeleton pivots are static indices chosen once
+per ``compute`` on the host: by the ACA walk, or from a kNN matrix
+(neighbor-guided farthest points). Every first compute of a configuration
+checks its factorization against the compressed operator
+(:meth:`HODLRSolver._factorization_self_check`).
 """
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
-from ..neighbors import morton_sort_samples
+from ..diagnostics import timer
+from ..neighbors import knn_indices, morton_sort_samples
 from ..ops.chol import cholesky as _batched_cholesky
 from .linalg import as_points
 
 __all__ = ["HODLRSolver", "HODLRStructure", "build_structure",
            "select_aca_pivots", "hodlr_factor", "hodlr_solve",
            "hodlr_matvec", "hodlr_matvec_factors", "hodlr_solve_refined",
-           "hodlr_loglike_and_grad_hutchinson", "ridge_gram"]
+           "hodlr_loglike_and_grad_hutchinson", "ridge_gram",
+           "hodlr_factor_sym", "hodlr_sqrt_matvec", "hodlr_sqrt_solve"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -61,6 +74,11 @@ class HODLRStructure(object):
     sibling pairs of block size ``s_l = n_pad / 2^l``; each pair carries
     ``c_l = min(rank, s_l)`` skeleton pivots per side.
 
+    ``nns``: optional rectangular neighbor matrix ``(n, k)`` in the sorted
+    order (``-1`` = missing): each level's farthest-point pivots are
+    reordered so that points with neighbors in the sibling block come
+    first (:func:`_nn_guided_pivots`).
+
     ``pivots``: optional per-level ``(row_piv, col_piv)`` arrays of
     absolute padded-row indices, shape ``(p_l, c_l)`` each, to adopt
     instead of drawing farthest-point pivots (how
@@ -69,7 +87,7 @@ class HODLRStructure(object):
     """
 
     def __init__(self, n, min_size=64, rank=32, seed=42, x_sorted=None,
-                 ridge_floor=None, pivots=None):
+                 nns=None, ridge_floor=None, pivots=None):
         self.n = int(n)
         self.seed = int(seed)
         # absolute floor for the interpolation ridge (the ``tol_abs``
@@ -117,6 +135,11 @@ class HODLRStructure(object):
             xpad = np.arange(self.n_pad, dtype=np.float64)[:, None]
         vpad = np.zeros(self.n_pad, dtype=bool)
         vpad[: self.n] = True
+        if nns is not None:
+            nns = np.asarray(nns, dtype=np.int64)
+            nns = np.concatenate(
+                [nns, -np.ones((self.n_pad - len(nns), nns.shape[1]),
+                               dtype=np.int64)], axis=0)
         for lev in range(1, L + 1):
             s = self.n_pad >> lev
             p = 1 << (lev - 1)
@@ -125,6 +148,18 @@ class HODLRStructure(object):
             vmask = vpad.reshape(p, 2, s)
             row_piv = _fps_pivots(blocks[:, 0], vmask[:, 0], c, rng)
             col_piv = _fps_pivots(blocks[:, 1], vmask[:, 1], c, rng)
+            if nns is not None:
+                # neighbor-guided skeletons: for a decaying kernel the
+                # coupling energy of a sibling pair sits on the points that
+                # have neighbors across the interface, so those rank first
+                nb = np.where(nns >= 0, nns // s, -1)
+                own = np.arange(self.n_pad, dtype=np.int64) // s
+                sib = np.where(own % 2 == 0, own + 1, own - 1)
+                counts = (nb == sib[:, None]).sum(axis=1).reshape(p, 2, s)
+                row_piv = _nn_guided_pivots(row_piv, counts[:, 0],
+                                            vmask[:, 0], c)
+                col_piv = _nn_guided_pivots(col_piv, counts[:, 1],
+                                            vmask[:, 1], c)
             # convert block-local positions to absolute padded-row indices
             base = (np.arange(p, dtype=np.int64) * 2 * s)[:, None]
             self.levels.append(
@@ -207,11 +242,25 @@ def _fps_pivots(xb, vmask, c, rng):
     return piv
 
 
+def _nn_guided_pivots(fps_piv, counts, vmask, c):
+    """Merge FPS pivots with cross-block neighbor counts: points with
+    cross-neighbors rank first (by count, FPS order breaking ties), the
+    remaining slots fill in FPS order. ``fps_piv``: ``(p, c)`` block-local
+    picks in FPS order; ``counts``/``vmask``: ``(p, s)``."""
+    p, s = counts.shape
+    score = np.where(vmask, counts.astype(np.float64) * (c + 1), -np.inf)
+    fscore = np.zeros((p, s))
+    fscore[np.repeat(np.arange(p), c), fps_piv.ravel()] = np.tile(
+        np.arange(c, 0, -1, dtype=np.float64), p)
+    order = np.argsort(-(score + fscore), axis=1, kind="stable")
+    return order[:, :c].astype(np.int64)
+
+
 def build_structure(n, min_size=64, rank=32, seed=42, x_sorted=None,
-                    ridge_floor=None):
+                    nns=None, ridge_floor=None):
     return HODLRStructure(
         n, min_size=min_size, rank=rank, seed=seed, x_sorted=x_sorted,
-        ridge_floor=ridge_floor,
+        nns=nns, ridge_floor=ridge_floor,
     )
 
 
@@ -767,6 +816,192 @@ def hodlr_loglike_and_grad_hutchinson(
 
 
 # ---------------------------------------------------------------------------
+# Symmetric factorization K = W W^T
+# ---------------------------------------------------------------------------
+
+def _leaf_tri_solve_t(Lleaf, Xt, transpose):
+    """``(L^{-1} X)^T`` (``transpose=False``) or ``(L^{-T} X)^T`` on
+    transposed ``Xt (k, n_pad)``, per leaf box: right-side triangular
+    solves ``X^T L^{-T}`` and ``X^T L^{-1}``."""
+    B, m, _ = Lleaf.shape
+    k = Xt.shape[0]
+    Xb = Xt.reshape(k, B, m).transpose(0, 1)              # (B, k, m)
+    if transpose:
+        Y = torch.linalg.solve_triangular(Lleaf, Xb, upper=False,
+                                          left=False)
+    else:
+        Y = torch.linalg.solve_triangular(Lleaf.mT, Xb, upper=True,
+                                          left=False)
+    return Y.transpose(0, 1).reshape(k, B * m)
+
+
+def _leaf_mul_t(Lleaf, Xt, transpose):
+    """``(L X)^T = X^T L^T`` (``transpose=False``) or ``(L^T X)^T = X^T L``
+    on transposed ``Xt (k, n_pad)``, per leaf box."""
+    B, m, _ = Lleaf.shape
+    k = Xt.shape[0]
+    Xb = Xt.reshape(k, B, m).transpose(0, 1)              # (B, k, m)
+    Y = Xb @ (Lleaf if transpose else Lleaf.mT)
+    return Y.transpose(0, 1).reshape(k, B * m)
+
+
+def hodlr_factor_sym(pair_fn, theta, xpad, valid, diag_pad, struct):
+    """Symmetric factorization ``K_compressed + diag = W W^T``, batched
+    level by level.
+
+    ``W = L_leaf G_L ... G_1`` with each ``G_l`` block-diagonal over the
+    level's sibling pairs. Per pair, with ``Utilde = W_left^{-1} C`` and
+    ``Vtilde = W_right^{-1} Q`` (the skeleton factors of
+    :func:`_all_lowrank_t` with every finer factor's inverse applied), the
+    node is ``I + U S U^T`` for ``U = blkdiag(Utilde, Vtilde)`` and ``S =
+    [[0, I], [I, 0]]``. Each half is orthonormalized by QR (``Utilde = Qu
+    Ru``), the small core ``I + [[0, Ru Rv^T], [Rv Ru^T, 0]]`` is split by
+    ``eigh`` with its eigenvalues floored at ``100 eps`` (the square root
+    stays defined where rounding makes the core indefinite), and ``G =
+    I + Qhat (S^{1/2} - I) Qhat^T`` with ``Qhat = blkdiag(Qu, Qv)``. ``G``
+    is symmetric, so ``G^{-T} = G^{-1} = I + Qhat (S^{-1/2} - I)
+    Qhat^T``.
+
+    Returns ``({"Lleaf", "levels": [(Qu, Qv, Msym, Minv), ...]}, logdet)``:
+    ``Qu``/``Qv`` transposed ``(c, p, s)``, ``Msym = S^{1/2} - I`` and
+    ``Minv = S^{-1/2} - I`` ``(p, 2c, 2c)``, and ``logdet = log det K``
+    from the leaf Cholesky diagonals and the cores' eigenvalues. The QR and
+    eigenvector signs cancel in ``Qhat M Qhat^T``, so ``W`` itself is
+    unique given the skeletons."""
+    n_pad, m, L = struct.n_pad, struct.m, struct.L
+    B = n_pad // m
+    xb = xpad.reshape(B, m, -1)
+    vb = valid.reshape(B, m)
+    Lleaf = _leaf_cholesky(pair_fn, theta, xb, vb, diag_pad.reshape(B, m))
+    logdet = 2.0 * torch.sum(
+        torch.log(torch.diagonal(Lleaf, dim1=-2, dim2=-1))
+    )
+    if not L:
+        return {"Lleaf": Lleaf, "levels": []}, logdet
+
+    # U holds C on each pair's left block, V holds Q on its right block;
+    # both take the same W^{-1} sweep: the leaf solve now, each G^{-1} as
+    # it is created (fine to coarse)
+    UV = []
+    for lev, (Ct, Qt) in zip(
+        struct.levels, _all_lowrank_t(pair_fn, theta, xpad, valid, struct)
+    ):
+        c = lev["c"]
+        zero = torch.zeros_like(Ct)
+        UV.append(torch.stack([Ct, zero], dim=2).reshape(c, n_pad))
+        UV.append(torch.stack([zero, Qt], dim=2).reshape(c, n_pad))
+    widths = [X.shape[0] for X in UV]
+    UV = list(torch.split(
+        _leaf_tri_solve_t(Lleaf, torch.cat(UV, dim=0), False), widths,
+        dim=0))
+
+    dtype, dev = diag_pad.dtype, diag_pad.device
+    floor = 100.0 * torch.finfo(dtype).eps
+    levels_out = [None] * L
+    for li in range(L - 1, -1, -1):   # li = level index (0 = root split)
+        lev = struct.levels[li]
+        s, p, c = lev["s"], lev["p"], lev["c"]
+        Ub = UV[2 * li].reshape(c, p, 2, s)[:, :, 0]        # (c, p, s)
+        Vb = UV[2 * li + 1].reshape(c, p, 2, s)[:, :, 1]
+        Qu, Ru = torch.linalg.qr(Ub.permute(1, 2, 0))       # (p, s, c)
+        Qv, Rv = torch.linalg.qr(Vb.permute(1, 2, 0))
+        cross = Ru @ Rv.mT                                  # Ru Rv^T
+        zero = torch.zeros((p, c, c), dtype=dtype, device=dev)
+        eye2 = torch.eye(2 * c, dtype=dtype, device=dev)
+        core = eye2 + torch.cat(
+            [torch.cat([zero, cross], dim=-1),
+             torch.cat([cross.mT, zero], dim=-1)], dim=-2)
+        evals, evecs = torch.linalg.eigh(core)
+        evals = torch.clamp_min(evals, floor)
+        # det G = det S^{1/2}, and log det K = 2 log det W
+        logdet = logdet + torch.sum(torch.log(evals))
+        sq = torch.sqrt(evals)
+        Msym = (evecs * sq[:, None, :]) @ evecs.mT - eye2
+        Minv = (evecs / sq[:, None, :]) @ evecs.mT - eye2
+        Qu = Qu.permute(2, 0, 1).contiguous()               # (c, p, s)
+        Qv = Qv.permute(2, 0, 1).contiguous()
+        levels_out[li] = (Qu, Qv, Msym, Minv)
+        if li > 0:
+            # G^{-1} hits both tilde factors of every coarser level
+            X = _sym_apply_t(Qu, Qv, Minv, p, s, c,
+                             torch.cat(UV[:2 * li], dim=0))
+            UV[:2 * li] = torch.split(X, widths[:2 * li], dim=0)
+
+    return {"Lleaf": Lleaf, "levels": levels_out}, logdet
+
+
+def _sym_apply_t(Qu, Qv, M, p, s, c, Xt):
+    """Apply the symmetric node ``I + Qhat M Qhat^T`` (block-diagonal per
+    pair, ``Qhat = blkdiag(Qu, Qv)``, both ``(c, p, s)``) to transposed
+    ``Xt (k, n_pad)``."""
+    k = Xt.shape[0]
+    Xb = Xt.reshape(k, p, 2, s)
+    top = torch.einsum("cps,kps->pck", Qu, Xb[:, :, 0])
+    bot = torch.einsum("cps,kps->pck", Qv, Xb[:, :, 1])
+    y = torch.einsum("pcd,pdk->pck", M, torch.cat([top, bot], dim=1))
+    add_l = torch.einsum("cps,pck->kps", Qu, y[:, :c])
+    add_r = torch.einsum("cps,pck->kps", Qv, y[:, c:])
+    return (Xb + torch.stack([add_l, add_r], dim=2)).reshape(Xt.shape)
+
+
+def _sqrt_matvec_t(sym_factors, struct, Xt, transpose=False):
+    """``(W X)^T`` or ``(W^T X)^T`` on transposed ``Xt (k, n_pad)``.
+    ``W = L G_L ... G_1``: the root node first and the leaf factor last;
+    the transpose takes ``L^T`` first and the nodes fine to coarse."""
+    Lleaf = sym_factors["Lleaf"]
+    L = len(struct.levels)
+    if transpose:
+        Xt = _leaf_mul_t(Lleaf, Xt, True)
+        order = range(L - 1, -1, -1)
+    else:
+        order = range(L)
+    for li in order:
+        lev = struct.levels[li]
+        Qu, Qv, Msym, _ = sym_factors["levels"][li]
+        Xt = _sym_apply_t(Qu, Qv, Msym, lev["p"], lev["s"], lev["c"], Xt)
+    if not transpose:
+        Xt = _leaf_mul_t(Lleaf, Xt, False)
+    return Xt
+
+
+def _sqrt_solve_t(sym_factors, struct, Xt, transpose=False):
+    """``(W^{-1} X)^T`` or ``(W^{-T} X)^T`` on transposed ``Xt``:
+    ``W^{-1} = G_1^{-1} ... G_L^{-1} L^{-1}`` (the leaf solve first, nodes
+    fine to coarse) and ``W^{-T} = L^{-T} G_L^{-1} ... G_1^{-1}``, each
+    ``G_l^{-1}`` the stored ``I + Qhat (S^{-1/2} - I) Qhat^T``."""
+    Lleaf = sym_factors["Lleaf"]
+    L = len(struct.levels)
+    if transpose:
+        order = range(L)
+    else:
+        Xt = _leaf_tri_solve_t(Lleaf, Xt, False)
+        order = range(L - 1, -1, -1)
+    for li in order:
+        lev = struct.levels[li]
+        Qu, Qv, _, Minv = sym_factors["levels"][li]
+        Xt = _sym_apply_t(Qu, Qv, Minv, lev["p"], lev["s"], lev["c"], Xt)
+    if transpose:
+        Xt = _leaf_tri_solve_t(Lleaf, Xt, True)
+    return Xt
+
+
+def hodlr_sqrt_matvec(sym_factors, struct, X, transpose=False):
+    """``W X`` (or ``W^T X``) through the symmetric cascade. ``X``:
+    ``(n_pad,)`` or ``(n_pad, k)``."""
+    Xt, squeeze = _as_t(X)
+    return _from_t(_sqrt_matvec_t(sym_factors, struct, Xt, transpose),
+                   squeeze)
+
+
+def hodlr_sqrt_solve(sym_factors, struct, X, transpose=False):
+    """``W^{-1} X`` (or ``W^{-T} X``) through the symmetric cascade;
+    ``K^{-1} = W^{-T} W^{-1}``. ``X``: ``(n_pad,)`` or ``(n_pad, k)``."""
+    Xt, squeeze = _as_t(X)
+    return _from_t(_sqrt_solve_t(sym_factors, struct, Xt, transpose),
+                   squeeze)
+
+
+# ---------------------------------------------------------------------------
 # Solver class (george-compatible protocol)
 # ---------------------------------------------------------------------------
 
@@ -780,7 +1015,20 @@ class HODLRSolver(object):
     :param tol: target relative accuracy; mapped to a static rank.
     :param tol_abs: absolute floor of the skeleton interpolation ridge.
     :param seed: pivot RNG seed.
-    :param sort: Morton-sort inputs host-side for compressibility.
+    :param sort: Morton-sort inputs host-side for compressibility (on the
+        kernel's ``sort_axes`` where it has them, as ``LCMKernel`` does).
+    :param verbose: print the ``hodlr.compute`` span (it is registered in
+        ``diagnostics`` either way) and, under ``debug``, the self-check's
+        numbers.
+    :param debug: run the factorization self-check on every compute and
+        measure the compression error against the exact kernel; a GP with
+        a matrix-free gradient also compares it with the dense one.
+    :param sym: factor ``K = W W^T`` (:func:`hodlr_factor_sym`) and solve
+        through ``W^{-T} W^{-1}``; the Hutchinson gradient then uses the
+        symmetric probes ``W^{-T} u``.
+    :param knn: neighbor-guided skeleton pivots from the ``knn`` nearest
+        neighbors of each point (``compute(..., nns=)`` passes a neighbor
+        matrix instead).
     :param grad_mode: ``"exact"`` (autograd through :meth:`loglike_fn`) or
         ``"hutchinson"`` (matrix-free, :meth:`grad_log_likelihood`);
         ``compute_grad=True`` selects the latter.
@@ -792,26 +1040,29 @@ class HODLRSolver(object):
         ``"cuda"``; pass ``"cpu"`` explicitly on a host without a card).
     :param dtype: working dtype (default ``torch.float64``).
 
-    Not ported yet (they raise ``NotImplementedError``): ``sym=True``,
-    ``mesh=``, ``knn=`` / kNN-guided pivots from ``nns``, and the
-    factorization self-check behind ``debug=True``.
+    Not ported yet (it raises ``NotImplementedError``): ``mesh=``.
     """
 
     matrix_free = False
 
+    # configurations already residual-checked in this process. The check
+    # costs a solve and a compressed matvec, too much for every recompute
+    # of an optimizer loop; its failure mode (an unsuitable kernel family)
+    # is mostly a property of the configuration, but the threshold depends
+    # on theta (a length scale grown past the domain turns a decaying
+    # kernel effectively non-decaying), so the key holds a per-parameter
+    # e-fold bucket: a new regime re-triggers the check once
+    _checked_configs = set()
+
     def __init__(self, kernel, min_size=64, rank=None, tol=0.1,
-                 tol_abs=None, seed=42, sort=True, debug=False, compute_grad=False, sym=False, knn=None,
+                 tol_abs=None, seed=42, sort=True, verbose=False,
+                 debug=False, compute_grad=False, sym=False, knn=None,
                  grad_mode="exact", num_probes=16, mesh=None,
                  pivots="aca", refine_steps="auto", device="cuda",
                  dtype=torch.float64, **kwargs):
-        for flag, name in ((sym, "sym=True"), (mesh is not None, "mesh="),
-                           (knn is not None, "knn="),
-                           (debug, "debug=True (the self-check)")):
-            if flag:
-                raise NotImplementedError(
-                    "HODLRSolver(%s) is not ported to george_tpu_torch yet"
-                    % name
-                )
+        if mesh is not None:
+            raise NotImplementedError(
+                "HODLRSolver(mesh=) is not ported to george_tpu_torch yet")
         self.kernel = kernel
         self.min_size = int(min_size)
         if rank is None:
@@ -828,6 +1079,10 @@ class HODLRSolver(object):
         self.rank = int(rank)
         self.seed = int(seed)
         self.sort = bool(sort)
+        self.verbose = bool(verbose)
+        self.debug = bool(debug)
+        self.sym = bool(sym)
+        self.knn = None if knn is None else int(knn)
         self.tol_abs = None if tol_abs is None else float(tol_abs)
         if pivots not in ("aca", "fps"):
             raise ValueError("pivots must be 'aca' or 'fps'")
@@ -849,6 +1104,8 @@ class HODLRSolver(object):
         self._struct = None
         self._factors = None
         self._perm = None
+        self._sym_factors = None
+        self._sym_theta = None
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
@@ -858,37 +1115,55 @@ class HODLRSolver(object):
     # -- setup -------------------------------------------------------------
 
     def compute(self, x, yerr=0.0, nns=None, **kwargs):
+        # the symmetric factors belong to the previous points and theta
+        self._sym_factors = None
+        self._sym_theta = None
         x = as_points(x)
         n = len(x)
         yerr2 = np.atleast_1d(np.asarray(yerr, dtype=np.float64)) ** 2
         if yerr2.size == 1:
             yerr2 = yerr2 * np.ones(n)
-        # a rectangular kNN matrix asks for neighbor-guided pivots; CSR
-        # tuples, ragged listings and bare triggers are sparse-solver
-        # structures, which the hierarchical solver ignores
-        if nns is not None and not (
-            isinstance(nns, tuple) or np.isscalar(nns)
-            or np.asarray(nns).dtype == object or np.ndim(nns) != 2
-        ):
-            raise NotImplementedError(
-                "kNN-guided HODLR pivots are not ported to george_tpu_torch "
-                "yet"
-            )
+        # a kernel with a label column (the LCM task id) orders and
+        # partitions on its geometric axes only: ordered on the label, the
+        # coarse couplings would be full-domain cross-task blocks, not
+        # low-rank ones
+        sa = getattr(self.kernel, "sort_axes", None)
+        x_geom = x if sa is None else x[:, list(sa)]
         self._perm = (
-            morton_sort_samples(x) if self.sort
+            morton_sort_samples(x_geom) if self.sort
             else np.arange(n, dtype=np.int64)
         )
         xs = x[self._perm]
+        # a rectangular kNN matrix asks for neighbor-guided pivots; CSR
+        # tuples, ragged listings and bare triggers are sparse-solver
+        # structures, which the hierarchical solver ignores
+        if nns is not None and (
+            isinstance(nns, tuple) or np.isscalar(nns)
+            or np.asarray(nns).dtype == object or np.ndim(nns) != 2
+        ):
+            nns = None
+        if nns is None and self.knn:
+            nns = knn_indices(x, self.knn)
+        nns_sorted = None
+        if nns is not None:
+            # neighbor lists arrive in the original point order: map rows
+            # and entries into the sorted layout
+            nns = np.asarray(nns, dtype=np.int64)
+            pos = np.empty(n, dtype=np.int64)
+            pos[self._perm] = np.arange(n, dtype=np.int64)
+            mapped = np.where(nns >= 0, pos[np.clip(nns, 0, n - 1)], -1)
+            nns_sorted = mapped[self._perm]
         st = build_structure(
             n, min_size=self.min_size, rank=self.rank, seed=self.seed,
-            x_sorted=xs, ridge_floor=self.tol_abs,
+            x_sorted=x_geom[self._perm], nns=nns_sorted,
+            ridge_floor=self.tol_abs,
         )
         xpad = np.concatenate(
             [xs, np.repeat(xs[-1:], st.n_pad - n, axis=0)], axis=0
         )
         valid = np.zeros(st.n_pad, dtype=bool)
         valid[:n] = True
-        if self.pivots == "aca" and st.L > 0:
+        if self.pivots == "aca" and nns_sorted is None and st.L > 0:
             # kernel-adaptive skeletons at the compute-time theta, chosen
             # on the host in float64 (see select_aca_pivots); the
             # factorization stays exact-in-theta for autograd
@@ -907,33 +1182,132 @@ class HODLRSolver(object):
         if refine == "auto":
             refine = int(self.dtype == torch.float32 and n >= 200_000)
         self._refine_eff = refine
-        with torch.no_grad():
-            factors, logdet = hodlr_factor(
-                self.kernel.pair_fn, self._theta, self._xpad, self._valid,
-                self._diag_pad, st,
-            )
+        factor = hodlr_factor_sym if self.sym else hodlr_factor
+        with timer("hodlr.compute", verbose=self.verbose) as tm:
+            with torch.no_grad():
+                factors, logdet = tm.sync(factor(
+                    self.kernel.pair_fn, self._theta, self._xpad,
+                    self._valid, self._diag_pad, st,
+                ))
         if not bool(torch.isfinite(logdet)):
             raise np.linalg.LinAlgError(
                 "HODLR factorization failed (non-finite log-determinant)"
             )
         self._factors = factors
+        if self.sym:
+            # the main factors are the symmetric cascade: share them with
+            # the sqrt / sym-W surface
+            self._sym_factors = factors
+            self._sym_theta = np.array(self.kernel.parameter_vector)
         self.log_determinant = float(logdet)
         self.computed = True
+        self._factorization_self_check()
+
+    def _factorization_self_check(self):
+        """One-probe residual ``|K_bar (K_bar^{-1} v) - v| / |v|`` against
+        the compressed operator, so that skeleton truncation does not
+        enter, only instability of the factorization. It runs once per
+        configuration and theta regime in a process (``_checked_configs``),
+        and on every compute under ``debug``, which also measures the
+        compression error ``|K_bar v - K v| / |K v|`` against the exact
+        kernel.
+
+        The weak-admissibility SMW cascade is numerically unstable for
+        non-decaying kernels (Linear, Polynomial or DotProduct dominated
+        covariances): the couplings rival the block diagonal and the SMW
+        cores become singular to working precision, while the compressed
+        operator itself stays accurate. That failure is detected here and
+        reported with a warning."""
+        self.factor_residual = None     # not measured on memoized computes
+        self.compression_error = None   # measured only under debug
+        theta = np.asarray(self.kernel.parameter_vector, dtype=np.float64)
+        if np.isfinite(theta).all():
+            # e-fold buckets: most parameters live in log space
+            key = (
+                tuple(self.kernel.get_parameter_names()),
+                type(self.kernel).__name__,
+                len(self._perm), self.min_size, self.rank,
+                str(self.dtype).split(".")[-1],
+                tuple(np.floor(theta).astype(np.int64).tolist()),
+            )
+            if key in HODLRSolver._checked_configs and not self.debug:
+                return
+            HODLRSolver._checked_configs.add(key)
+        # a non-finite theta has no bucket: never memoized, always checked
+        rng = np.random.default_rng(self.seed + 7)
+        v = rng.standard_normal(len(self._perm))
+        z = self.apply_inverse(v)
+        r = float(np.linalg.norm(self.apply_forward(z) - v)
+                  / np.linalg.norm(v))
+        self.factor_residual = r
+        if self.debug:
+            zb = self.apply_forward(v)
+            ze = self._exact_matvec(v)
+            self.compression_error = float(
+                np.linalg.norm(zb - ze) / np.linalg.norm(ze))
+            if self.verbose:
+                print("HODLR debug: compression rel err %.3e; "
+                      "factorization residual %.3e"
+                      % (self.compression_error, self.factor_residual))
+        tol = 1e-6 if self.dtype == torch.float64 else 1e-2
+        if r > tol:
+            warnings.warn(
+                "HODLR factorization self-check failed: relative solve "
+                "residual %.2e against the compressed operator. The "
+                "weak-admissibility SMW cascade is numerically unstable "
+                "for non-decaying kernels (Linear/Polynomial/DotProduct"
+                "-dominated covariances) — log-likelihoods and solves "
+                "from this factorization are unreliable; use BasicSolver "
+                "(or, for compact-support kernels, SparseSolver) "
+                "instead." % r,
+                stacklevel=3,
+            )
+
+    def _exact_matvec(self, v, chunk=4096):
+        """Exact ``(K + diag) v`` in the original point order, by dense row
+        blocks of ``chunk`` rows on the solver's device in float64: O(n^2)
+        operations in O(n * chunk) memory."""
+        f64 = torch.float64
+        x = torch.as_tensor(self._x, dtype=f64, device=self.device)
+        theta = torch.as_tensor(self.kernel.parameter_vector, dtype=f64,
+                                device=self.device)
+        n = len(x)
+        d = torch.empty(n, dtype=f64, device=self.device)
+        d[torch.as_tensor(self._perm, device=self.device)] = (
+            self._diag_pad[:n].to(f64))
+        v = torch.as_tensor(np.asarray(v, dtype=np.float64),
+                            device=self.device)
+        out = torch.empty(n, dtype=f64, device=self.device)
+        with torch.no_grad():
+            for i in range(0, n, chunk):
+                rows = self.kernel.gram(theta, x[i:i + chunk], x)
+                out[i:i + chunk] = rows @ v
+        return (out + d * v).cpu().numpy()
+
+    def _base_solve_t(self, factors, Yt):
+        """One pass of the factored inverse on transposed ``Yt``: the SMW
+        cascade, or ``W^{-T} W^{-1}`` when ``sym``."""
+        st = self._struct
+        if self.sym:
+            return _sqrt_solve_t(factors, st,
+                                 _sqrt_solve_t(factors, st, Yt),
+                                 transpose=True)
+        return _solve_t(factors, st, Yt)
 
     def _solve(self, Y):
         """``K^{-1} Y`` on padded device RHS ``(n_pad, k)``, with
         ``_refine_eff`` steps of plain refinement ``Z += F^{-1}(Y - K_bar
         Z)`` against the compressed matvec assembled at the compute-time
-        theta."""
+        theta (around either cascade)."""
         st = self._struct
         with torch.no_grad():
             Yt = Y.T
-            Z = _solve_t(self._factors, st, Yt)
+            Z = self._base_solve_t(self._factors, Yt)
             for _ in range(self._refine_eff):
                 R = Yt - _matvec_t(self.kernel.pair_fn, self._theta,
                                    self._xpad, self._valid, self._diag_pad,
                                    st, Z)
-                Z = Z + _solve_t(self._factors, st, R)
+                Z = Z + self._base_solve_t(self._factors, R)
             return Z.T
 
     # -- pure fused surface -------------------------------------------------
@@ -1055,7 +1429,14 @@ class HODLRSolver(object):
         alpha = np.asarray(alpha)
         rng = np.random.default_rng(self.seed + 1)
         probes = rng.choice([-1.0, 1.0], size=(n, self.num_probes))
-        probe_l, probe_r = self.apply_inverse(probes), probes
+        if self.sym:
+            # with K = W W^T, tr(K^{-1} dK) = E_u[(W^{-T}u)^T dK (W^{-T}u)]:
+            # a quadratic form in a symmetric operator, with half the
+            # variance of the K^{-1}u pairing below
+            w = self.apply_inverse_sym_W_transpose(probes)
+            probe_l, probe_r = w, w
+        else:
+            probe_l, probe_r = self.apply_inverse(probes), probes
 
         nparam = int(self.kernel.full_size)
         kernel_grads = np.empty(nparam)
@@ -1076,10 +1457,77 @@ class HODLRSolver(object):
         if len(gp.white_noise):
             wn = gp._call_white_noise(np.asarray(x))
             wng = gp._call_white_noise_gradient(np.asarray(x))
-            diag_Kinv = np.mean(probe_r * probe_l, axis=1)
+            # E[w w^T] = W^{-T} W^{-1} = K^{-1} in the symmetric branch, so
+            # the same products estimate diag(K^{-1}) either way
+            diag_Kinv = (np.mean(probe_l ** 2, axis=1) if self.sym
+                         else np.mean(probe_r * probe_l, axis=1))
             diag_A = alpha ** 2 - diag_Kinv
             wn_g = list(
                 0.5 * np.sum((np.exp(wn) * diag_A)[None, :] * wng, axis=1)
             )
         kmask = gp.kernel.unfrozen_mask
         return np.array(mean_g + wn_g + list(kernel_grads[kmask]))
+
+    # -- symmetric factor surface ----------------------------------------
+
+    def _ensure_sym(self):
+        """(Re)build the symmetric factors ``K = W W^T`` lazily, keyed on
+        the kernel's current parameter vector."""
+        theta = np.array(self.kernel.parameter_vector)
+        if self._sym_factors is None or self._sym_theta is None or (
+                not np.array_equal(theta, self._sym_theta)):
+            with torch.no_grad():
+                self._sym_factors, _ = hodlr_factor_sym(
+                    self.kernel.pair_fn, self._tensor(theta), self._xpad,
+                    self._valid, self._diag_pad, self._struct)
+            self._sym_theta = theta
+
+    def apply_sqrt(self, r):
+        """``r @ W^T`` with ``K = W W^T`` from the symmetric factorization:
+        rows of ``r`` ``(size, n)`` (or one row ``(n,)``) transported to
+        prior draws in O(n r log n)."""
+        self._ensure_sym()
+        st = self._struct
+        r = np.asarray(r, dtype=np.float64)
+        squeeze = r.ndim == 1
+        R = r[None, :] if squeeze else r               # (size, n)
+        Z = np.zeros((R.shape[0], st.n_pad))
+        Z[:, :st.n] = R[:, self._perm]
+        with torch.no_grad():
+            out = _sqrt_matvec_t(self._sym_factors, st, self._tensor(Z))
+        out = out[:, :st.n].cpu().numpy().astype(np.float64)
+        res = np.empty_like(out)
+        res[:, self._perm] = out
+        return res[0] if squeeze else res
+
+    def _apply_sym_W(self, y, solve, transpose):
+        self._ensure_sym()
+        Y, squeeze = self._pad_rhs(y)
+        fn = _sqrt_solve_t if solve else _sqrt_matvec_t
+        with torch.no_grad():
+            Z = fn(self._sym_factors, self._struct, Y.T, transpose)
+        return self._unpad(Z.T, squeeze)
+
+    def apply_inverse_sym_W(self, y):
+        """``W^{-1} y``; the columns of a matrix ``y`` independently."""
+        return self._apply_sym_W(y, solve=True, transpose=False)
+
+    def apply_inverse_sym_W_transpose(self, y):
+        """``W^{-T} y``; the columns of a matrix ``y`` independently."""
+        return self._apply_sym_W(y, solve=True, transpose=True)
+
+    # pickling drops the device state; a restored solver needs a compute
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        for k in ("_factors", "_xpad", "_valid", "_diag_pad", "_theta",
+                  "_sym_factors", "_struct"):
+            state.pop(k, None)
+        state["_sym_theta"] = None
+        state["computed"] = False
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self.__dict__.setdefault("_struct", None)
+        self.__dict__.setdefault("_factors", None)
+        self.__dict__.setdefault("_sym_factors", None)

@@ -168,11 +168,17 @@ def test_error_paths():
 
 
 def test_hodlr_solver_refuses_unported_options():
+    """``mesh=`` is the one HODLR option not ported; ``sym``, ``knn`` and
+    ``debug`` are (``tests/test_torch_hodlr_sym.py``,
+    ``tests/test_torch_aux.py``)."""
     k = _kernel(tgt)
-    for kw in ({"sym": True}, {"mesh": object()}, {"knn": 8},
-               {"debug": True}):
-        with pytest.raises(NotImplementedError):
-            tgt.HODLRSolver(k, device=DEV, **kw)
+    with pytest.raises(NotImplementedError):
+        tgt.HODLRSolver(k, device=DEV, mesh=object())
+    for kw in ({"sym": True}, {"knn": 8}, {"debug": True},
+               {"verbose": True}):
+        s = tgt.HODLRSolver(k, device=DEV, **kw)
+        name, value = next(iter(kw.items()))
+        assert getattr(s, name) == value
 
 
 def test_nll_apply_inverse_and_dtype():
@@ -302,6 +308,8 @@ def test_every_submodule_imports_with_jax_blocked():
         "assert 'george_tpu_torch.solvers.sparse' in names\n"
         "assert 'george_tpu_torch.sampling.hmc' in names\n"
         "assert 'george_tpu_torch.sampling.vi' in names\n"
+        "assert 'george_tpu_torch.checkpoint' in names\n"
+        "assert 'george_tpu_torch.diagnostics' in names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
