@@ -17,7 +17,10 @@ sizes the project benchmarks:
   above under the samplers and ``minimize``;
 * the rest of the HODLR surface: the symmetric factorization and
   ``GP.sample``, the factorization self-check, ``debug=True``, kNN-guided
-  pivots, and the multi-output LCM model at n = 1e5; sampler checkpoints.
+  pivots, and the multi-output LCM model at n = 1e5; sampler checkpoints;
+* the strong-admissibility H-matrix solver at the 2-D configuration of
+  ``benchmarks/bench_hmatrix.py`` (``ExpSquaredKernel([1.5, 1.5])``,
+  ``min_size`` 64, rank 16) up to n = 1e5.
 
 Phases:
 
@@ -79,7 +82,20 @@ Phases:
     the task-1 prediction: rank 48 in float64 and float32, and rank 96 with
     refinement in float64 (see ``phase_lcm`` for why);
 15. after each NUTS run, its final state through ``checkpoint`` and back,
-    bit for bit, and the ``diagnostics`` spans of the solvers' computes.
+    bit for bit, and the ``diagnostics`` spans of the solvers' computes;
+16. the H-matrix solver (``HMatrixSolver``) on bench_hmatrix's data: (a)
+    n = 4000 in float64 and float32 against the recorded dense truth and
+    the dense float64 solver on the card; (b) n = 16000: likelihoods and
+    the 32-probe Hutchinson gradient against the dense float64 ones,
+    ``GP.sample``, ``apply_sqrt`` twice against the matvec, and
+    ``log_prob_fn`` over 2 chains in float32 under the samplers' batched
+    evaluator; (c) n = 1e5 in float32 then float64: compute with its stage
+    breakdown, the likelihood first and repeated, ``dot_solve``, CG
+    iterations, peak memory, the near field's bytes, a profile of one
+    ``dot_solve``, and the two dtypes' likelihoods against each other; (d)
+    ``examples/spatial.py``'s assertions at n = 2000 beside the weak HODLR
+    solver; (e) the float64 1-D whitener on the smooth dataset at n = 2e4
+    against the dense solver, with the leaf kernel's launches.
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
@@ -113,6 +129,20 @@ N_DIA = 200_000
 # 21 ms, host-bound), past this script's time limit, so
 # the path runs 25 + 25 here (NUTS_STEPS = 200 is the full configuration)
 NUTS_STEPS = 25
+# benchmarks/bench_hmatrix.py: its headline n, and its recorded CPU-float64
+# dense likelihoods of the seed-3 datasets at n = 4000 and 16000
+N_HM = 100_000
+HM_TRUTH_4000 = 2894.5753680081853
+HM_TRUTH_16000 = 11762.457
+# Lanczos steps of apply_sqrt in the n = 16000 check, and the CG
+# iterations of the profiled n = 1e5 solve
+HM_SQRT_STEPS = 200
+HM_PROFILE_ITERS = 8
+# the (B, m) float64 leaves that phase 16 gives the leaf kernel: the weak
+# HODLR comparison of (d) and the symmetric 1-D whitener of (e); the kernel
+# phase holds the kernel against its plain version at both
+HM_WEAK_LEAVES = (16, 125)
+HM_WHITENER_LEAVES = (256, 79)
 
 # the card's published peaks (H100 SXM data sheet, at 700 W): device memory
 # bytes/s and float32 / float64 non-tensor FLOP/s
@@ -394,6 +424,8 @@ def phase_kernel():
              (2048, 489, torch.float32, "device", 1e-4, True),
              (64, 489, torch.float32, "device", 1e-4, False),
              (16, 196, torch.float64, "shared", 1e-10, False),
+             HM_WHITENER_LEAVES + (torch.float64, "shared", 1e-10, False),
+             HM_WEAK_LEAVES + (torch.float64, "shared", 1e-10, False),
              (2, 1900, torch.float32, "device-panel", 1e-4, False)]
     for B, m, dtype, variant, tol, timed in cases:
         plan = chol.launch_plan(B, m, dtype)
@@ -1675,6 +1707,468 @@ def phase_lcm(device, n):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the strong-admissibility H-matrix solver
+# ---------------------------------------------------------------------------
+
+def hmatrix_dataset(n, seed):
+    """benchmarks/bench_hmatrix.py's ``_dataset``, same numpy stream: 2-D
+    points on a square whose side grows like sqrt(n), a smooth field plus
+    noise 0.1; x, y, yerr."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 12.0 * np.sqrt(n / 2000.0), (n, 2))
+    truth = np.sin(x[:, 0]) * np.cos(0.7 * x[:, 1])
+    y = truth + 0.1 * rng.standard_normal(n)
+    yerr = 0.1 * np.ones(n)
+    return x, y, yerr
+
+
+def hmatrix_kernel():
+    from george_tpu_torch import kernels
+
+    return 1.0 * kernels.ExpSquaredKernel([1.5, 1.5], ndim=2)
+
+
+def hmatrix_gp(device, dtype, **kw):
+    """bench_hmatrix's solver: min_size 64, rank 16."""
+    import george_tpu_torch as gtt
+
+    kw = dict(dict(min_size=64, rank=16), **kw)
+    return gtt.GP(hmatrix_kernel(), solver=gtt.HMatrixSolver, device=device,
+                  dtype=dtype, **kw)
+
+
+def dense_gp(kernel, x, yerr, device):
+    """The port's dense float64 solver on the card."""
+    import torch
+    import george_tpu_torch as gtt
+
+    gp = gtt.GP(kernel, solver=gtt.BasicSolver, device=device,
+                dtype=torch.float64)
+    gp.compute(x, yerr)
+    return gp
+
+
+def _gate(label, value, limit):
+    log("%s: %.3e (limit %.0e)" % (label, value, limit))
+    if not value <= limit:
+        raise RuntimeError("%s: %.3e over %.0e" % (label, value, limit))
+    return value
+
+
+def phase_hmatrix_accuracy(device, n=4000):
+    """(a) bench_hmatrix's truth size: the likelihood in float64 and float32
+    against the recorded CPU-float64 dense truth and the port's dense
+    float64 solver on the card."""
+    import torch
+
+    x, y, yerr = hmatrix_dataset(n, 3)
+    ll_dense = dense_gp(hmatrix_kernel(), x, yerr, device).log_likelihood(y)
+    out = {"ll_dense": ll_dense,
+           "dense_vs_truth_rel": abs(ll_dense - HM_TRUTH_4000)
+           / abs(HM_TRUTH_4000)}
+    log("hmatrix (a) n=%d: dense f64 on the card %.10f, recorded CPU truth "
+        "%.10f, rel %.3e" % (n, ll_dense, HM_TRUTH_4000,
+                             out["dense_vs_truth_rel"]))
+    for dtype, limit in ((torch.float64, 1e-4), (torch.float32, 1e-3)):
+        name = str(dtype).split(".")[-1]
+        gp = hmatrix_gp(device, dtype)
+        gp.compute(x, yerr)
+        ll = gp.log_likelihood(y)
+        s = gp.solver
+        out[name] = {"ll": ll, "cg_iters": s.last_cg_iters,
+                     "nystrom_rank": s.nystrom_rank_effective}
+        log("hmatrix (a) %s: ll %.10f, CG iterations %d, Nystrom rank %d"
+            % (name, ll, s.last_cg_iters, s.nystrom_rank_effective))
+        out[name]["rel_truth"] = _gate(
+            "hmatrix (a) %s rel err vs the recorded truth" % name,
+            abs(ll - HM_TRUTH_4000) / abs(HM_TRUTH_4000), limit)
+        out[name]["rel_dense"] = _gate(
+            "hmatrix (a) %s rel err vs the dense solver" % name,
+            abs(ll - ll_dense) / abs(ll_dense), limit)
+    return out
+
+
+def phase_hmatrix_16k(device, n=16000, sqrt_steps=HM_SQRT_STEPS):
+    """(b) bench_hmatrix --truth-n 16000: likelihoods and the gradient
+    against the dense float64 ones on the card, GP.sample, apply_sqrt
+    against the matvec, and log_prob over 2 chains under the samplers'
+    batched evaluator."""
+    import torch
+    from george_tpu_torch.sampling import hmc
+
+    x, y, yerr = hmatrix_dataset(n, 3)
+    t0 = time.perf_counter()
+    gpd = dense_gp(hmatrix_kernel(), x, yerr, device)
+    ll_dense = gpd.log_likelihood(y)
+    g_dense = gpd.grad_log_likelihood(y)
+    sync(device)
+    out = {"dense_s": time.perf_counter() - t0, "ll_dense": ll_dense,
+           "grad_dense": g_dense.tolist()}
+    del gpd
+    log("hmatrix (b) n=%d: dense f64 ll %.10f and gradient %s on the card "
+        "(%.3f s)" % (n, ll_dense, np.array2string(g_dense),
+                      out["dense_s"]))
+    out["dense_vs_recorded"] = _gate(
+        "hmatrix (b) dense ll vs the recorded 11762.457",
+        abs(ll_dense - HM_TRUTH_16000) / abs(HM_TRUTH_16000), 1e-6)
+    scale = float(np.abs(g_dense).max())
+    for dtype, limit in ((torch.float64, 1e-4), (torch.float32, 1e-3)):
+        name = str(dtype).split(".")[-1]
+        gp = hmatrix_gp(device, dtype)
+        sync(device)
+        t0 = time.perf_counter()
+        gp.compute(x, yerr)
+        ll = gp.log_likelihood(y)
+        sync(device)
+        res = {"compute_ll_s": time.perf_counter() - t0, "ll": ll,
+               "cg_iters": gp.solver.last_cg_iters}
+        res["rel_dense"] = _gate(
+            "hmatrix (b) %s ll %.6f (compute + ll %.3f s, CG %d) rel err vs "
+            "dense" % (name, ll, res["compute_ll_s"], res["cg_iters"]),
+            abs(ll - ll_dense) / abs(ll_dense), limit)
+        if dtype == torch.float64:
+            np.random.seed(0)
+            draws = gp.sample(size=2)
+            if draws.shape != (2, n) or not np.all(np.isfinite(draws)):
+                raise RuntimeError("hmatrix (b): GP.sample gave %s"
+                                   % (draws.shape,))
+            v = np.random.default_rng(21).standard_normal(n)
+            s = gp.solver
+            t0 = time.perf_counter()
+            SSv = s.apply_sqrt(s.apply_sqrt(v, num_steps=sqrt_steps),
+                               num_steps=sqrt_steps)
+            res["apply_sqrt_twice_s"] = time.perf_counter() - t0
+            Kv = s.apply_forward(v)
+            res["sqrt_rel"] = _gate(
+                "hmatrix (b) f64 apply_sqrt twice (%d Lanczos steps, %.3f s)"
+                " vs apply_forward, max|d| of max|Kv|"
+                % (sqrt_steps, res["apply_sqrt_twice_s"]),
+                float(np.abs(SSv - Kv).max() / np.abs(Kv).max()), 1e-5)
+        del gp
+        gph = hmatrix_gp(device, dtype, num_probes=32)
+        gph.compute(x, yerr)
+        sync(device)
+        t0 = time.perf_counter()
+        g = gph.grad_log_likelihood(y)
+        res["grad_s"] = time.perf_counter() - t0
+        res["grad"] = g.tolist()
+        res["grad_cg_iters"] = gph.solver.last_cg_iters
+        res["deflation_rank"] = int(
+            gph.solver._grad_deflation_basis().shape[1])
+        res["grad_rel"] = _gate(
+            "hmatrix (b) %s Hutchinson gradient (32 probes, deflation rank "
+            "%d, CG %d, %.3f s) %s vs dense, max|d| / max|g|"
+            % (name, res["deflation_rank"], res["grad_cg_iters"],
+               res["grad_s"], np.array2string(g)),
+            float(np.abs(g - g_dense).max()) / scale, 0.1)
+        del gph
+        out[name] = res
+
+    # log_prob_fn over 2 chains, float32, through the samplers' evaluator
+    gp = hmatrix_gp(device, torch.float32)
+    gp.compute(x, yerr)
+    log_prob = gp.log_prob_fn(x, y, yerr, gate_prior=False)
+    truth = gp.get_parameter_vector()
+    thetas = torch.as_tensor(
+        truth[None, :] + 0.01 * np.random.default_rng(5).standard_normal(
+            (2, len(truth))), device=device, dtype=torch.float32)
+    value_and_grad = hmc._make_value_and_grad(log_prob)
+    torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    lp, g = value_and_grad(thetas)
+    sync(device)
+    out["chains_eval_s"] = time.perf_counter() - t0
+    out["chains_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    single = torch.func.grad_and_value(log_prob)
+    rels = []
+    for c in range(2):
+        g1, v1 = single(thetas[c])
+        r = {"value": abs(float(lp[c]) - float(v1)) / abs(float(v1)),
+             "grad": float((g[c] - g1).abs().max())
+             / float(g1.abs().max())}
+        rels.append(r)
+        log("hmatrix (b) chain %d: batched vs unbatched f32 value %.6f, rel "
+            "%.3e (limit 1e-5); gradient %s, max|d| %.3e of max|g| (limit "
+            "1e-3)" % (c, float(v1), r["value"],
+                       np.array2string(g1.cpu().numpy()), r["grad"]))
+    out["chains_rel"] = rels
+    # the fused likelihood and the solver's own share the SLQ probes and
+    # the whitener, so they part only by float32 rounding
+    out["log_prob_vs_host"] = abs(
+        float(log_prob(torch.as_tensor(truth, device=device,
+                                       dtype=torch.float32)))
+        - gp.log_likelihood(y)) / abs(ll_dense)
+    log("hmatrix (b) log_prob over 2 chains, f32: %.3f s per batched value "
+        "and gradient, peak device memory %.3f GB; log_prob at "
+        "compute-theta vs the host likelihood, rel %.3e (limit 1e-6)"
+        % (out["chains_eval_s"], out["chains_peak_gb"],
+           out["log_prob_vs_host"]))
+    if not all(r["value"] <= 1e-5 and r["grad"] <= 1e-3 for r in rels):
+        raise RuntimeError("hmatrix (b): batched and unbatched chains "
+                           "disagree")
+    if not out["log_prob_vs_host"] <= 1e-6:
+        raise RuntimeError("hmatrix (b): log_prob at compute-theta is off "
+                           "the host likelihood")
+
+    # the same evaluation where the near field is not stored: reverse mode
+    # through the on-the-fly near field, its blocks evaluated again
+    gpf = hmatrix_gp(device, torch.float32, store_near=False)
+    gpf.compute(x, yerr)
+    log_prob_f = gpf.log_prob_fn(x, y, yerr, gate_prior=False)
+    del gp, log_prob, value_and_grad
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    g_f, v_f = torch.func.grad_and_value(log_prob_f)(thetas[0])
+    sync(device)
+    out["on_the_fly_eval_s"] = time.perf_counter() - t0
+    out["on_the_fly_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["on_the_fly_grad_rel"] = float((g_f - g[0]).abs().max()
+                                       / g[0].abs().max())
+    log("hmatrix (b) log_prob value and gradient with the near field on the "
+        "fly, f32: %.3f s, peak device memory %.3f GB; gradient vs the "
+        "stored near field's, max|d| %.3e of max|g| (limit 1e-3)"
+        % (out["on_the_fly_eval_s"], out["on_the_fly_peak_gb"],
+           out["on_the_fly_grad_rel"]))
+    if not out["on_the_fly_grad_rel"] <= 1e-3:
+        raise RuntimeError("hmatrix (b): the on-the-fly near field's "
+                           "gradient is off the stored one's")
+    return out
+
+
+HM_STAGES = ("hmatrix.traversal", "hmatrix.far_pivots", "hmatrix.compress",
+             "hmatrix.near", "hmatrix.nystrom_fps", "hmatrix.nystrom_columns",
+             "hmatrix.nystrom_cholqr", "hmatrix.nystrom_eigh",
+             "hmatrix.whitener", "hmatrix.slq", "hmatrix.compute")
+
+
+def phase_hmatrix_headline(device, n, dtype):
+    """(c) bench_hmatrix --n 100000: compute with its stage breakdown (the
+    solver's ``diagnostics`` spans, each closed by a synchronization), the
+    likelihood first and repeated, dot_solve, peak memory, the near field's
+    bytes, and a profile of one dot_solve cut to ``HM_PROFILE_ITERS`` CG
+    iterations.
+
+    float64 runs a shortened protocol: one repeated likelihood and one
+    dot_solve (a float64 solve here takes 138 CG iterations of 106 ms on
+    an H100; bench_hmatrix's 3 + 5 would take the phase past its share of
+    the script's time)."""
+    import torch
+    from george_tpu_torch import diagnostics
+
+    name = str(dtype).split(".")[-1]
+    full = dtype == torch.float32
+    x, y, yerr = hmatrix_dataset(n, 7)
+    gp = hmatrix_gp(device, dtype)
+    diagnostics.reset()
+    torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync(device)
+    out = {"compute_s": time.perf_counter() - t0}
+    rep = diagnostics.report()
+    out["stages_s"] = {k.split(".")[1]: rep[k]["total_s"]
+                       for k in HM_STAGES if k in rep}
+    s = gp.solver
+    hs = s._hs
+    out.update({"resident_gb_after_compute":
+                torch.cuda.memory_allocated() / 1e9,
+                "near_bytes": s.near_bytes, "near_stored": s._near is not None,
+                "nystrom_rank": s.nystrom_rank_effective,
+                "leaves": [hs.B, hs.m], "near_slots": hs.near_nbr.shape[1],
+                "n_near": hs.n_near, "n_far": hs.n_far,
+                "far_ranks": [lev["c"] for lev in hs.far]})
+    log("hmatrix (c) %s n=%d: compute %.3f s; stages %s" % (
+        name, n, out["compute_s"], json.dumps(out["stages_s"])))
+    log("hmatrix (c) %s: %d leaves of %d, %d near slots, %d near and %d far "
+        "pairs, far ranks %s, near field %.3f GB (%s), Nystrom rank %d"
+        % (name, hs.B, hs.m, out["near_slots"], hs.n_near, hs.n_far,
+           out["far_ranks"], s.near_bytes / 1e9,
+           "stored" if out["near_stored"] else "evaluated per matvec",
+           out["nystrom_rank"]))
+    t0 = time.perf_counter()
+    ll = gp.log_likelihood(y)
+    out["loglike_s_first"] = time.perf_counter() - t0
+    out["ll"] = ll
+    times = []
+    for k in range(3 if full else 1):
+        t0 = time.perf_counter()
+        gp.log_likelihood(y + 1e-6 * (k + 1))
+        times.append(time.perf_counter() - t0)
+    out["loglike_s_repeat"] = min(times)
+    times = []
+    for k in range(5 if full else 1):
+        yk = y + 1e-6 * k
+        t0 = time.perf_counter()
+        s.dot_solve(yk)
+        times.append(time.perf_counter() - t0)
+    out["solve_s"] = min(times)
+    out["cg_iters"] = s.last_cg_iters
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("hmatrix (c) %s: ll %.6f, log_likelihood first %.4f s, repeated "
+        "%.4f s (best of %d), dot_solve %.4f s (best of %d), CG iterations "
+        "%d, peak device memory %.3f GB"
+        % (name, ll, out["loglike_s_first"], out["loglike_s_repeat"],
+           3 if full else 1, out["solve_s"], 5 if full else 1,
+           out["cg_iters"], out["peak_gb"]))
+    if not np.isfinite(ll):
+        raise RuntimeError("hmatrix (c) %s: non-finite likelihood" % name)
+    # the profile window: one dot_solve cut to HM_PROFILE_ITERS CG
+    # iterations, beside the same cut solve's unprofiled time (processing
+    # the 2e5 device operations of a whole float32 solve took the
+    # profiler 114 s on an H100 machine's host)
+    maxiter = s.maxiter
+    s.maxiter = HM_PROFILE_ITERS
+    try:
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            s.dot_solve(y)
+            times.append(time.perf_counter() - t0)
+        out["cut_solve_ms"] = min(times) * 1e3
+        out["profile"] = profile_calls(
+            [lambda: s.dot_solve(y)], out["cut_solve_ms"],
+            "hmatrix (c) %s, one dot_solve cut to %d CG iterations"
+            % (name, HM_PROFILE_ITERS))
+    finally:
+        s.maxiter = maxiter
+    return out
+
+
+def phase_hmatrix_spatial(device, n=2000):
+    """(d) examples/spatial.py at its n = 2000, float64: the prediction
+    RMSE and coverage, and the strong solver's likelihood error against the
+    dense one beside the weak HODLR solver's at the same rank (which
+    launches the leaf kernel)."""
+    import torch
+    import george_tpu_torch as gtt
+
+    f64 = torch.float64
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0, 12, (n, 2))
+    truth = np.sin(x[:, 0]) * np.cos(0.7 * x[:, 1])
+    y = truth + 0.1 * rng.standard_normal(n)
+    yerr = 0.1 * np.ones(n)
+    gp = hmatrix_gp(device, f64, precond_rank=64)
+    gp.compute(x, yerr)
+    ll = gp.log_likelihood(y)
+    t = rng.uniform(1, 11, (400, 2))
+    mu, var = gp.predict(y, t, return_var=True)
+    ft = np.sin(t[:, 0]) * np.cos(0.7 * t[:, 1])
+    out = {"rmse": float(np.sqrt(np.mean((mu - ft) ** 2))),
+           "coverage": float(np.mean(np.abs(mu - ft)
+                                     <= 2 * np.sqrt(var) + 1e-12))}
+    ll_exact = dense_gp(hmatrix_kernel(), x, yerr, device).log_likelihood(y)
+    gpw = gtt.GP(hmatrix_kernel(), solver=gtt.HODLRSolver, min_size=64,
+                 rank=16, device=device, dtype=f64)
+    gpw.compute(x, yerr)
+    ll_weak = gpw.log_likelihood(y)
+    st = gpw.solver._struct
+    out["weak_leaves"] = [st.n_pad // st.m, st.m]
+    if tuple(out["weak_leaves"]) != HM_WEAK_LEAVES:
+        raise RuntimeError("hmatrix (d): the weak solver's leaves %s are not "
+                           "the kernel phase's %s"
+                           % (out["weak_leaves"], HM_WEAK_LEAVES))
+    out["err_strong"] = abs(ll - ll_exact) / abs(ll_exact)
+    out["err_weak"] = abs(ll_weak - ll_exact) / abs(ll_exact)
+    log("hmatrix (d) spatial n=%d f64: ll %.6f, dense %.6f, weak %.6f; RMSE "
+        "%.4f (limit 0.1), 2-sigma coverage %.3f (limit 0.9); rel err strong "
+        "%.3e (limit 5e-4), weak %.3e (strong must be < 0.1 x weak)"
+        % (n, ll, ll_exact, ll_weak, out["rmse"], out["coverage"],
+           out["err_strong"], out["err_weak"]))
+    if not (out["rmse"] < 0.1 and out["coverage"] > 0.9
+            and out["err_strong"] < 5e-4
+            and out["err_strong"] < 0.1 * out["err_weak"]):
+        raise RuntimeError("hmatrix (d): spatial example's assertions fail")
+    return out
+
+
+def phase_hmatrix_sym_1d(device, n=20_000):
+    """(e) the float64 1-D whitener (the weak symmetric HODLR cascade, its
+    leaves through the leaf kernel) on the smooth dataset, against the
+    dense float64 solver on the card."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.ops import chol
+
+    x, y, yerr, kernel = smooth_dataset(n)
+    before = chol.chol_kernel_launches
+    gp = gtt.GP(kernel, solver=gtt.HMatrixSolver, min_size=64,
+                device=device, dtype=torch.float64)
+    sync(device)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    ll = gp.log_likelihood(y)
+    sync(device)
+    s = gp.solver
+    out = {"compute_ll_s": time.perf_counter() - t0, "ll": ll,
+           "cg_iters": s.last_cg_iters,
+           "whitener_leaves": [s._st.n_pad // s._st.m, s._st.m],
+           "leaf_launches": chol.chol_kernel_launches - before}
+    ll_dense = dense_gp(kernel, x, yerr, device).log_likelihood(y)
+    out["ll_dense"] = ll_dense
+    log("hmatrix (e) 1-D f64 n=%d: symmetric whitener over %d leaves of %d, "
+        "compute + ll %.3f s, CG %d, leaf kernel launches %d"
+        % (n, out["whitener_leaves"][0], out["whitener_leaves"][1],
+           out["compute_ll_s"], out["cg_iters"], out["leaf_launches"]))
+    out["rel_dense"] = _gate(
+        "hmatrix (e) ll %.6f vs dense %.6f, rel err" % (ll, ll_dense),
+        abs(ll - ll_dense) / abs(ll_dense), 1e-4)
+    if out["leaf_launches"] <= 0:
+        raise RuntimeError("hmatrix (e): the whitener never launched the "
+                           "leaf kernel")
+    if tuple(out["whitener_leaves"]) != HM_WHITENER_LEAVES:
+        raise RuntimeError("hmatrix (e): the whitener's leaves %s are not "
+                           "the kernel phase's %s"
+                           % (out["whitener_leaves"], HM_WHITENER_LEAVES))
+    return out
+
+
+def phase_hmatrix(device):
+    """Phase 16: (a) to (e); (c) float32 then float64 at n = 1e5. Each
+    part's seconds are in ``out["seconds"]``. The leaf kernel's launches
+    are counted apart for (a) to (d), where only the weak HODLR comparison
+    of (d) launches it, and for (e), the H-matrix solver's own whitener:
+    ``out["launches"]``, each count set to 0 right before its part."""
+    import torch
+    from george_tpu_torch.ops import chol
+
+    out, secs = {}, {}
+
+    def run(key, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        secs[key] = time.perf_counter() - t0
+        log("hmatrix (%s): %.3f s" % (key, secs[key]))
+        torch.cuda.empty_cache()
+        return result
+
+    out["a"] = run("a", phase_hmatrix_accuracy, device)
+    out["b"] = run("b", phase_hmatrix_16k, device)
+    c = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        c[name] = run("c " + name, phase_hmatrix_headline, device, N_HM,
+                      dtype)
+    c["f32_vs_f64_rel"] = _gate(
+        "hmatrix (c) float32 ll vs float64 ll, rel",
+        abs(c["float32"]["ll"] - c["float64"]["ll"])
+        / abs(c["float64"]["ll"]), 1e-3)
+    out["c"] = c
+    out["d"] = run("d", phase_hmatrix_spatial, device)
+    launches = {"weak_comparison": chol.chol_kernel_launches}
+    chol.chol_kernel_launches = 0
+    out["e"] = run("e", phase_hmatrix_sym_1d, device)
+    launches["hmatrix_solver"] = chol.chol_kernel_launches
+    out["launches"] = launches
+    out["seconds"] = secs
+    return out
+
+
 def phase_checkpoint(samples, stats, seed):
     """The NUTS run's final state through ``checkpoint`` (the flat
     ``.npz``) and back, bit for bit; and ``diagnostics`` holding the
@@ -1793,6 +2287,23 @@ def main():
         raise RuntimeError("the LCM path never launched the leaf kernel")
     torch.cuda.empty_cache()
 
+    # the strong-admissibility H-matrix solver; the leaf kernel runs in its
+    # float64 1-D whitener and in the weak solver it is compared with
+    chol.chol_kernel_launches = 0
+    hm = phase_hmatrix(device)
+    launches_hm = hm["launches"]
+    log("hmatrix: leaf Cholesky kernel launches %d in the H-matrix solver's "
+        "whitener, %d in the weak comparison (%.1f s into the run)"
+        % (launches_hm["hmatrix_solver"], launches_hm["weak_comparison"],
+           time.perf_counter() - t_start))
+    if launches_hm["hmatrix_solver"] == 0:
+        raise RuntimeError("the H-matrix solver never launched the leaf "
+                           "kernel")
+    if launches_hm["weak_comparison"] == 0:
+        raise RuntimeError("the weak comparison never launched the leaf "
+                           "kernel")
+    torch.cuda.empty_cache()
+
     data = (x, y, yerr, kernel)
     dia.dia_kernel_launches = 0
     direct = phase_sparse_direct(data)
@@ -1840,7 +2351,7 @@ def main():
         "sparse_direct": direct, "sparse_iterative": it,
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
         "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
-        "lcm": lcm, "checkpoint": ckpt,
+        "lcm": lcm, "hmatrix": hm, "checkpoint": ckpt,
         "seconds": time.perf_counter() - t_start}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library
@@ -1872,7 +2383,9 @@ def main():
          "chain_batched_launch_B": chains["leaf_launch_batch"],
          "launches_sym_path": launches_sym,
          "launches_lcm_path": launches_lcm,
-         "launches_selfcheck_knn_path": launches_selfcheck},
+         "launches_selfcheck_knn_path": launches_selfcheck,
+         "launches_hmatrix_path": launches_hm["hmatrix_solver"],
+         "launches_hmatrix_weak_comparison": launches_hm["weak_comparison"]},
         {"name": "dia_matvec", "route": "cuda",
          "source": "george_tpu_torch/csrc/dia.cu",
          "replaces": "george_tpu/ops/dia.py:96",

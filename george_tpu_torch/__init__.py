@@ -1,7 +1,7 @@
 # -*- coding: utf-8 -*-
 """george-tpu-torch: the PyTorch and CUDA port of george-tpu.
 
-Two paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
+Three paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
 
 * the hierarchical (HODLR) marginal log-likelihood: the kernel zoo
   generated from the same YAML specs with the multi-output ``LCMKernel``,
@@ -9,6 +9,10 @@ Two paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
   and Hutchinson gradients, its symmetric ``K = W W^T`` factorization
   (``apply_sqrt``, ``sym=True``), kNN-guided pivots and the factorization
   self-check;
+* the strong-admissibility H-matrix solver for 2-D and 3-D data: exact
+  near field, compressed well-separated box pairs, preconditioned CG with a
+  Nystrom (or, in float64 on 1-D data, weak symmetric HODLR) whitener, a
+  whitened SLQ log-determinant and deflated Hutchinson gradients;
 * the compact-support sparse solver for ``WendlandC2Kernel``: CG + SLQ with
   Hutchinson gradients over a banded (DIA) or padded-neighbor (ELL)
   layout, and the exact block-tridiagonal Cholesky on sorted 1-D data;
@@ -54,6 +58,7 @@ from .solvers import (  # noqa: E402,F401
     BasicSolver,
     TrivialSolver,
     HODLRSolver,
+    HMatrixSolver,
     SparseSolver,
 )
 
@@ -66,6 +71,7 @@ __all__ = [
     "BasicSolver",
     "TrivialSolver",
     "HODLRSolver",
+    "HMatrixSolver",
     "SparseSolver",
     "checkpoint",
     "diagnostics",

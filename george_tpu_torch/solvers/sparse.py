@@ -45,7 +45,7 @@ from .linalg import as_points
 
 __all__ = ["SparseSolver", "ell_from_csr", "ell_matvec", "ell_values",
            "ell_apply", "dia_apply", "banded_offsets", "banded_ell_tables",
-           "cg_solve", "lanczos_fn_matvec", "slq_logdet"]
+           "cg_solve", "lanczos_fn_matvec", "pcg_solve", "slq_logdet"]
 
 
 def ell_from_csr(nbr_idx, row_ptr, pad_multiple=8):
@@ -222,17 +222,17 @@ def slq_logdet(matvec, probes, num_steps=30, return_std=False):
     return mean
 
 
-def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):
-    """Jacobi-preconditioned CG for SPD ``A x = b`` (vector or multi-RHS,
-    every column iterated until all meet ``||r|| <= tol ||b||``). Returns
-    ``(x, iterations)``; the convergence test reads one scalar back to the
-    host per iteration."""
+def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200):
+    """Preconditioned CG for SPD ``A x = b`` with an SPD preconditioner
+    apply ``precond(r) ~= A^{-1} r`` (vector or multi-RHS, every column
+    iterated until all meet ``||r|| <= tol ||b||``). Returns ``(x,
+    iterations)``; the stopping test reads one scalar back to the host per
+    iteration."""
     squeeze = b.ndim == 1
     B = b[:, None] if squeeze else b
-    Minv = (1.0 / precond_diag)[:, None]
     X = torch.zeros_like(B)
-    R = B.clone()                   # B - A X at X = 0
-    Z = Minv * R
+    R = B                           # B - A X at X = 0
+    Z = precond(R)
     P = Z
     rz = torch.sum(R * Z, dim=0)
     b2 = torch.clamp_min(torch.sum(B * B, dim=0), torch.finfo(B.dtype).tiny)
@@ -245,12 +245,19 @@ def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):
         alpha = rz / torch.where(denom > 0, denom, 1.0)
         X = X + alpha * P
         R = R - alpha * AP
-        Z = Minv * R
+        Z = precond(R)
         rz_new = torch.sum(R * Z, dim=0)
         P = Z + (rz_new / torch.where(rz > 0, rz, 1.0)) * P
         rz = rz_new
         it += 1
     return (X[:, 0] if squeeze else X), it
+
+
+def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):
+    """Jacobi-preconditioned CG for SPD ``A x = b``: :func:`pcg_solve`
+    with the preconditioner ``r / precond_diag``."""
+    Minv = (1.0 / precond_diag)[:, None]
+    return pcg_solve(matvec, lambda R: Minv * R, b, tol=tol, maxiter=maxiter)
 
 
 def _per_member(apply, info, in_dims, args):

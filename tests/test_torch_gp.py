@@ -306,6 +306,7 @@ def test_every_submodule_imports_with_jax_blocked():
         "for name in names: importlib.import_module(name)\n"
         "assert 'george_tpu_torch.ops.dia' in names\n"
         "assert 'george_tpu_torch.solvers.sparse' in names\n"
+        "assert 'george_tpu_torch.solvers.hmatrix' in names\n"
         "assert 'george_tpu_torch.sampling.hmc' in names\n"
         "assert 'george_tpu_torch.sampling.vi' in names\n"
         "assert 'george_tpu_torch.checkpoint' in names\n"
