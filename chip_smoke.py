@@ -95,13 +95,31 @@ Phases:
     ``dot_solve``, and the two dtypes' likelihoods against each other; (d)
     ``examples/spatial.py``'s assertions at n = 2000 beside the weak HODLR
     solver; (e) the float64 1-D whitener on the smooth dataset at n = 2e4
-    against the dense solver, with the leaf kernel's launches.
+    against the dense solver, with the leaf kernel's launches;
+17. parallel and the kernel API: (a) the CSR ``get_value(x, nns=)`` and
+    ``get_gradient(x, nns=)`` on bench_dia's data (n = 2e5) in float64 and
+    float32 against the sparse solver's entry table and the CPU, and
+    ``2.0 * WendlandC2Kernel`` through ``SparseSolver``; then, on 2 gloo
+    ranks sharing the card (``torch.multiprocessing``, each rank with a
+    rendezvous and a join timeout): (b) ``HODLRSolver(mesh=)`` at the
+    smooth n = 1e5 (256 leaves a rank) in float64 and float32 against the
+    anchor and the one-rank run; (c) ``sharded_predict`` on the HODLR,
+    sparse (CG through the DIA kernel) and H-matrix solvers against
+    ``gp.predict``; (d) NUTS at bench_nuts's n = 512 configuration and
+    the ensemble, sharded against unsharded; (e) a one-rank NCCL group
+    running (c)'s HODLR case; (f) ``entry.dryrun_multichip(2)`` on the
+    card. Each rank counts its own launches.
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
 root with no arguments::
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --unsharded-times A B B A`` instead times the
+unsharded HODLR, sparse and NUTS paths (``unsharded_times``) of the ports
+in the checkouts ``A`` and ``B`` in turns, each run in a process of its
+own, to compare two versions on one card.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -127,8 +145,9 @@ N_DIA = 200_000
 # NUTS warmup and sample steps per dtype. bench_nuts's 200 + 200 took
 # 1227 s in float64 alone on an H100 (57,698 batched leapfrog steps of
 # 21 ms, host-bound), past this script's time limit, so
-# the path runs 25 + 25 here (NUTS_STEPS = 200 is the full configuration)
-NUTS_STEPS = 25
+# the path runs 15 + 15 here (NUTS_STEPS = 200 is the full configuration;
+# 25 + 25 until phase 17 added two more float64 runs of it)
+NUTS_STEPS = 15
 # benchmarks/bench_hmatrix.py: its headline n, and its recorded CPU-float64
 # dense likelihoods of the seed-3 datasets at n = 4000 and 16000
 N_HM = 100_000
@@ -145,9 +164,10 @@ HM_WEAK_LEAVES = (16, 125)
 HM_WHITENER_LEAVES = (256, 79)
 
 # the card's published peaks (H100 SXM data sheet, at 700 W): device memory
-# bytes/s and float32 / float64 non-tensor FLOP/s
+# bytes/s, float32 FLOP/s outside the tensor cores, and float64 FLOP/s on
+# them (the larger float64 rate; 34e12 outside them)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 
 def log(msg):
@@ -2211,6 +2231,856 @@ def phase_checkpoint(samples, stats, seed):
     return {"bytes": size, "checks": checks, "spans": spans}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: parallel and the kernel API
+# ---------------------------------------------------------------------------
+
+# the ranks that share the one card, their rendezvous and join timeouts
+P17_RANKS = 2
+P17_RENDEZVOUS_S = 120
+P17_JOIN_S = 900
+# test points of sharded_predict per solver, the kernel API's CPU cut, and
+# the H-matrix size of (c) (bench_hmatrix's seed-3 truth size)
+P17_T_HODLR = 8192
+# gp.predict on one rank is the reference of (c) and (e) at every k-th of
+# each solver's test points: HODLR's is host numpy over 6.5 GB of cross
+# covariances at all 8192, the sparse one a CG as long as a rank's
+P17_REF_STRIDE = {"hodlr": 8, "sparse": 4, "hmatrix": 1}
+P17_T_SPARSE = 1024
+P17_T_HM = 1024
+P17_N_HM = 16_000
+P17_API_CUT = 20_000
+# the HODLR mesh run's prediction points (tests/test_parallel.py's check)
+P17_T_MESH = 1000
+# phase 11's NUTS options
+P17_NUTS_KW = dict(max_depth=8, target_accept=0.8, dense_mass=True,
+                   segment_size=8)
+
+
+def _max_rel(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+def phase_kernel_api(device):
+    """(a) The kernel-evaluation API on bench_dia's data (n = 2e5): the CSR
+    ``get_value(x, nns=)`` and ``get_gradient(x, nns=)`` on the card in
+    float64 and float32 against the sparse solver's own entry table on the
+    same pairs and against the same API on the CPU at a 2e4 cut; then an
+    amplitude times the compact-support kernel through ``SparseSolver``
+    (direct, float64) at n = 2e5, and at the cut against the CPU."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch import kernels
+    from george_tpu_torch.solvers import sparse as S
+
+    x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
+    n = len(x)
+    out, full = {}, True
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
+        name = str(dtype).split(".")[-1]
+        sync(device)
+        t0 = time.perf_counter()
+        # the radius query in the float64 run; float32 reuses its pairs
+        V = kernel.get_value(x, nns=full, device=device, dtype=dtype)
+        full = kernel.nns_saved
+        t_value = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        G = kernel.get_gradient(x, nns=True, device=device, dtype=dtype)
+        t_grad = time.perf_counter() - t0
+        nbytes = V.data.nbytes + V.indices.nbytes + V.indptr.nbytes
+        # the solver's entry table on the band of the same pairs: its
+        # valid slots, row by row, are the CSR entries in order
+        offsets, lo, hi = S.banded_offsets(*full)
+        nbr, mask = S.banded_ell_tables(offsets, lo, hi, n)
+        like = {"device": device, "dtype": dtype}
+        mask_t = torch.as_tensor(mask, device=device)
+        with torch.no_grad():
+            vals = S.ell_values(
+                kernel.pair_fn, kernel.theta.to(**like),
+                torch.as_tensor(x[:, None]).to(**like),
+                torch.as_tensor(nbr.astype(np.int64), device=device), mask_t)
+            table = vals[mask_t].cpu().numpy()
+        del vals
+        err_table = _max_rel(V.data, table)
+        xc = x[:P17_API_CUT]
+        Vg = kernel.get_value(xc, nns=True, device=device, dtype=dtype)
+        Vc = kernel.get_value(xc, nns=True, device="cpu", dtype=dtype)
+        Gg = kernel.get_gradient(xc, nns=True, device=device, dtype=dtype)
+        Gc = kernel.get_gradient(xc, nns=True, device="cpu", dtype=dtype)
+        err_cpu = max([_max_rel(Vg.data, Vc.data)]
+                      + [_max_rel(a.data, b.data) for a, b in zip(Gg, Gc)])
+        same_pattern = (np.array_equal(Vg.indptr, Vc.indptr)
+                        and np.array_equal(Vg.indices, Vc.indices))
+        out[name] = {"nnz": int(V.nnz), "value_s": t_value,
+                     "gradient_s": t_grad, "csr_bytes": int(nbytes),
+                     "gradient_bytes": int(sum(g.data.nbytes for g in G)),
+                     "vs_entry_table": err_table, "vs_cpu_cut": err_cpu}
+        log("kernel api %s: get_value(nns=) %d pairs in %.3f s (%d CSR "
+            "bytes), get_gradient(nns=) %d matrices in %.3f s; vs the "
+            "solver's entry table %.3e, vs the CPU at n=%d %.3e (limits "
+            "%.0e)" % (name, V.nnz, t_value, nbytes, len(G), t_grad,
+                       err_table, P17_API_CUT, err_cpu, tol))
+        if not (err_table <= tol and err_cpu <= tol and same_pattern
+                and V.nnz == int(full[1][-1])):
+            raise RuntimeError("kernel api %s disagrees" % name)
+        del V, G, Vg, Vc, Gg, Gc
+        kernel.nns_saved = full     # the cut's structure was the last
+    kernel.nns_saved = None
+
+    def scaled():
+        return 2.0 * kernels.WendlandC2Kernel(
+            log_rc=np.log(2.0), kernel_base=kernels.ExpSquaredKernel(1.0))
+
+    sync(device)
+    t0 = time.perf_counter()
+    gp = gtt.GP(scaled(), solver=gtt.SparseSolver, direct=True,
+                device=device, dtype=torch.float64)
+    gp.compute(x, yerr)
+    ll = gp.log_likelihood(y)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    if not np.isfinite(ll) or gp.solver._band_factors is None:
+        raise RuntimeError("2.0 * WendlandC2 through SparseSolver failed")
+    lls = []
+    for dev in (device, "cpu"):
+        g = gtt.GP(scaled(), solver=gtt.SparseSolver, direct=True,
+                   device=dev, dtype=torch.float64)
+        g.compute(x[:P17_API_CUT], yerr)
+        lls.append(g.log_likelihood(y[:P17_API_CUT]))
+    r = abs(lls[0] - lls[1]) / abs(lls[1])
+    out["scaled_wendland"] = {"ll": ll, "seconds": seconds,
+                              "cut_ll": lls, "cut_rel_vs_cpu": r}
+    log("kernel api: 2.0 * WendlandC2 through SparseSolver (direct, "
+        "float64) at n=%d: ll %.10f in %.3f s; at n=%d card %.12f vs CPU "
+        "%.12f, rel %.3e (limit 1e-10)"
+        % (n, ll, seconds, P17_API_CUT, lls[0], lls[1], r))
+    if not r <= 1e-10:
+        raise RuntimeError("the scaled compact-support kernel disagrees with "
+                           "the CPU")
+    return out
+
+
+def _p17_kernel_shapes():
+    """The kernels at the shapes phase 17's paths give them, each against
+    its plain version and timed beside the plain version, the library
+    call and the bound: the leaf Cholesky at each rank's (256, 196) leaves
+    under ``mesh=`` (float64, float32), and the DIA matvec in float64 on
+    bench_dia's band at r = 16 and at the width of the launches that the
+    solver's prepared apply splits each rank's ``sharded_predict`` block
+    into (:func:`george_tpu_torch.ops.dia.stream_width`), then that apply
+    on the whole block against the plain version."""
+    import torch
+    from george_tpu_torch.ops import chol, dia
+
+    out = {}
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-4)):
+        A = _spd(256, 196, dtype)
+        name = "leaf_256x196_%s" % str(dtype).split(".")[-1]
+        err = _check_chol(chol.cholesky_cuda, "chol_kernel_launches", A, tol,
+                          "parallel kernel (256, 196) %s" % name[-7:])
+        t = _time_chol(chol.cholesky_cuda, A)
+        t["max_abs_err"] = err
+        out[name] = t
+        log("parallel kernel time %s: kernel %.4f ms, plain %.4f ms, "
+            "torch.linalg.cholesky %.4f ms, bound %.4f ms (%s)"
+            % (name, t["ms"], t["plain_ms"], t["library_ms"], t["bound_ms"],
+               t["bound_by"]))
+    x, _, _, _, kernel = bench_dia_dataset(N_DIA)
+    f64 = torch.float64
+    offsets, vals, mask, _ = dia_table(x, kernel, (f64,))
+    v = vals[f64]
+    n, D = v.shape
+    cols = P17_T_SPARSE // P17_RANKS
+    width = dia.stream_width(n, D, cols, f64)
+    diag = torch.full((n,), 0.01, device="cuda", dtype=f64)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    A = _csr_of_band(v, offsets, mask, diag)
+    for r in (16, width):
+        y = torch.randn((n, r), generator=g, device="cuda", dtype=f64)
+        res, err = _check_dia("bench n=%d D=%d r=%d f64 [%s]" % (
+            n, D, r, dia.launch_plan(n, D, r, f64).variant), v, offsets,
+            diag, y, 1e-12)
+        t = {"max_abs_err": err,
+             "ms": cuda_ms(lambda: dia.dia_matvec_cuda(v, offsets, diag, y)),
+             "plain_ms": cuda_ms(
+                 lambda: dia.dia_matvec_plain(v, offsets, diag, y)),
+             "library_ms": cuda_ms(lambda: A @ y)}
+        t["bound_ms"], t["bound_by"] = bound(
+            v.element_size() * (n * D + n + 2 * n * r),
+            2.0 * n * (D + 1) * r, f64)
+        out["dia_r%d_float64" % r] = t
+        log("parallel kernel time dia n=%d D=%d r=%d f64: kernel %.4f ms, "
+            "plain %.4f ms, cuSPARSE CSR %.4f ms, bound %.4f ms (%s)"
+            % (n, D, r, t["ms"], t["plain_ms"], t["library_ms"],
+               t["bound_ms"], t["bound_by"]))
+    out["dia_stream_width_float64"] = width
+    # the prepared apply on one rank's whole block: launches of ``width``
+    op = dia.DiaOperator(offsets, n)
+    y = torch.randn((n, cols), generator=g, device="cuda", dtype=f64)
+    before = dia.dia_kernel_launches
+    res = op(v, diag, y)
+    torch.cuda.synchronize()
+    launches = dia.dia_kernel_launches - before
+    ref = dia.dia_matvec_plain(v, offsets, diag, y)
+    err = float((res - ref).abs().max())
+    scale = float(ref.abs().max())
+    del ref
+    ms = cuda_ms(lambda: op(v, diag, y))
+    out["dia_operator_r%d_float64" % cols] = {
+        "launches": launches, "width": width, "max_abs_err": err, "ms": ms}
+    log("parallel kernel dia: the prepared apply at n=%d D=%d r=%d f64 in "
+        "%d launches of at most %d columns, %.4f ms, max|d| %.3e = %.3e "
+        "max|out| (limit 1e-12)" % (n, D, cols, launches, width, ms, err,
+                                    err / scale))
+    if not (err <= 1e-12 * scale and launches == -(-cols // width)):
+        raise RuntimeError("the DIA operator's split launches disagree with "
+                           "the plain version")
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _p17_record():
+    """Count this process's leaf-kernel and DIA-kernel launches from 0 and
+    record each launch's shape; returns ``(shapes, stop)``, ``stop()``
+    giving ``{"leaf": n, "leaf_B": [...], "dia": n, "dia_r": [...]}``."""
+    from george_tpu_torch.ops import chol, dia
+
+    chol.chol_kernel_launches = 0
+    dia.dia_kernel_launches = 0
+    shapes = {"leaf": [], "dia": []}
+    leaf, launch = chol.cholesky_cuda, dia._launch
+
+    def rec_leaf(A):
+        shapes["leaf"].append(int(A.shape[0]))
+        return leaf(A)
+
+    def rec_dia(vals, diag, y, *args):
+        shapes["dia"].append(1 if y.ndim == 1 else int(y.shape[1]))
+        return launch(vals, diag, y, *args)
+
+    chol.cholesky_cuda, dia._launch = rec_leaf, rec_dia
+
+    def stop():
+        chol.cholesky_cuda, dia._launch = leaf, launch
+        return {"leaf": chol.chol_kernel_launches,
+                "leaf_B": sorted(set(shapes["leaf"])),
+                "dia": dia.dia_kernel_launches,
+                "dia_r": sorted(set(shapes["dia"]))}
+
+    return stop
+
+
+def _p17_mesh_gp(mesh, dtype):
+    """(b) on this rank: the smooth n = 1e5 GP with ``HODLRSolver(mesh=)``:
+    compute, likelihood, exact gradient (float64), prediction at 1000
+    points, with this rank's leaf launches, compute seconds, seconds per
+    value + gradient and peak memory."""
+    import torch
+    import george_tpu_torch as gtt
+
+    x, y, yerr, kernel = smooth_dataset(N_MAIN)
+    stop = _p17_record()
+    torch.cuda.reset_peak_memory_stats()
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                mesh=mesh, device="cuda", dtype=dtype)
+    sync("cuda")
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync("cuda")
+    out = {"compute_s": time.perf_counter() - t0,
+           "ll": gp.log_likelihood(y), "sharded": gp.solver._shard is not None,
+           "local_leaves": int(gp.solver._factors["Lleaf"].shape[0])}
+    if dtype == torch.float64:
+        gp.grad_log_likelihood(y)
+        sync("cuda")
+        t0 = time.perf_counter()
+        out["grad"] = gp.grad_log_likelihood(y)
+        sync("cuda")
+        out["eval_s"] = time.perf_counter() - t0
+        t = np.linspace(0.0, 1000.0, P17_T_MESH)
+        out["mu"], out["var"] = gp.predict(y, t, return_var=True)
+    out["launches"] = stop()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _p17_predict_gps(which):
+    """The GPs of (c), computed on the card in float64: ``(gp, y, t)``."""
+    import torch
+    import george_tpu_torch as gtt
+
+    f64 = torch.float64
+    if which == "hodlr":
+        x, y, yerr, kernel = smooth_dataset(N_MAIN)
+        gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                    device="cuda", dtype=f64)
+        t = np.linspace(0.0, 1000.0, P17_T_HODLR)
+    elif which == "sparse":
+        x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
+        gp = gtt.GP(kernel, solver=gtt.SparseSolver, direct=False,
+                    device="cuda", dtype=f64)
+        t = np.linspace(x.min(), x.max(), P17_T_SPARSE)
+    else:
+        x, y, yerr = hmatrix_dataset(P17_N_HM, 3)
+        gp = hmatrix_gp("cuda", f64)
+        t = np.random.default_rng(5).uniform(
+            0, 12.0 * np.sqrt(P17_N_HM / 2000.0), (P17_T_HM, 2))
+    gp.compute(x, yerr)
+    return gp, y, t
+
+
+def _p17_ref_points(which):
+    """The test points of (c) at which ``gp.predict`` on one rank is the
+    reference: every ``P17_REF_STRIDE[which]``-th."""
+    return slice(None, None, P17_REF_STRIDE[which])
+
+
+def _p17_sharded_predict(mesh):
+    """(c) on this rank: ``sharded_predict`` on the three solvers, with
+    this rank's launches of each kernel and its column count."""
+    import torch
+    from george_tpu_torch import parallel
+
+    out = {}
+    for which in ("hodlr", "sparse", "hmatrix"):
+        stop = _p17_record()
+        gp, y, t = _p17_predict_gps(which)
+        compute = stop()
+        stop = _p17_record()
+        sync("cuda")
+        t0 = time.perf_counter()
+        mu, var = parallel.sharded_predict(mesh, gp, y, t)
+        sync("cuda")
+        out[which] = {"mu": mu, "var": var,
+                      "seconds": time.perf_counter() - t0,
+                      "launches_compute": compute, "launches": stop(),
+                      "columns": -(-len(t) // mesh.size())}
+        del gp
+        torch.cuda.empty_cache()
+    return out
+
+
+def _p17_samplers(mesh):
+    """(d) on this rank: NUTS at bench_nuts's n = 512 configuration and
+    the stretch-move ensemble, the chains split over the ranks."""
+    import torch
+    from george_tpu_torch import parallel
+
+    _, log_prob, v0, p0 = nuts_model("cuda", torch.float64)
+    parallel.sharded_sample_nuts(mesh, 1, log_prob, p0, num_warmup=1,
+                                 num_samples=1, **P17_NUTS_KW)
+    sync("cuda")
+    t0 = time.perf_counter()
+    samples, stats = parallel.sharded_sample_nuts(
+        mesh, 0, log_prob, p0, num_warmup=NUTS_STEPS, num_samples=NUTS_STEPS,
+        **P17_NUTS_KW)
+    sync("cuda")
+    seconds = time.perf_counter() - t0
+    out = {"samples": samples.cpu().numpy(), "seconds": seconds,
+           "step_size": stats["step_size"].cpu().numpy(),
+           "sigma": stats["inv_mass"]["sigma"].cpu().numpy(),
+           "leapfrog_evals": stats["leapfrog_evals"],
+           "samples_per_sec": samples.shape[0] * samples.shape[1] / seconds}
+    walkers = _p17_walkers(v0)
+    batched = torch.func.vmap(log_prob)
+    chain, logp, acc = parallel.sharded_run_ensemble(mesh, 3, walkers,
+                                                     batched, 50)
+    out["ensemble"] = (chain.cpu().numpy(), logp.cpu().numpy(),
+                       acc.cpu().numpy())
+    return out
+
+
+def _p17_walkers(v0):
+    return v0[None, :] + 1e-3 * np.random.default_rng(4).standard_normal(
+        (32, len(v0)))
+
+
+def _p17_rank(rank, world, port, backend, tasks, queue):
+    """One rank of phase 17: join the group (``parallel.initialize``, the
+    backend picked automatically unless given), run ``tasks`` on a mesh
+    over it, and put ``(rank, results)`` (or the traceback) on ``queue``."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+        from george_tpu_torch import parallel
+
+        torch.cuda.set_device(0)
+        parallel.initialize(
+            init_method="tcp://127.0.0.1:%d" % port, rank=rank,
+            world_size=world, backend=backend,
+            timeout=datetime.timedelta(seconds=P17_RENDEZVOUS_S))
+        mesh = parallel.chain_mesh()
+        group = mesh.get_group()
+        out = {"backend": dist.get_backend(group)}
+        # a collective of each kind on the card, checked
+        ones = torch.ones(4, device="cuda", dtype=torch.float64)
+        from george_tpu_torch.parallel import collectives as C
+
+        out["all_reduce_ok"] = bool(torch.all(C.all_reduce(ones, group)
+                                              == world))
+        out["all_gather_ok"] = bool(C.gather_rows(ones * rank, group).shape
+                                    == (4 * world,))
+        out["broadcast_ok"] = bool(torch.all(C.broadcast(ones * rank, group)
+                                             == 0))
+        for task in tasks:
+            t0 = time.perf_counter()
+            out[task] = globals()[task](mesh)
+            out[task + "_s"] = time.perf_counter() - t0
+        queue.put((rank, out))
+        dist.destroy_process_group()
+    except Exception:      # reported to the parent, which raises
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def _p17_spawn(world, tasks, backend=None):
+    """Run ``tasks`` on ``world`` spawned ranks sharing the card; returns
+    each rank's results, or raises with the failed ranks' tracebacks."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_p17_rank,
+                         args=(r, world, port, backend, tasks, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.perf_counter() + P17_JOIN_S
+    try:
+        while len(results) < world:
+            left = deadline - time.perf_counter()
+            if left <= 0:
+                raise RuntimeError("phase 17: ranks %s did not finish in %d s"
+                                   % (sorted(set(range(world)) - set(results)),
+                                      P17_JOIN_S))
+            try:
+                rank, res = q.get(timeout=min(left, 10.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and r not in results]
+                if dead:
+                    time.sleep(2.0)       # a result may still be in flight
+                    if q.empty():
+                        raise RuntimeError("phase 17: ranks %s exited "
+                                           "without a result" % dead)
+                continue
+            results[rank] = res
+            if "error" in res:      # the others may wait on it: stop soon
+                deadline = min(deadline, time.perf_counter() + 10.0)
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = ["rank %d:\n%s" % (r, res["error"])
+              for r, res in sorted(results.items()) if "error" in res]
+    if errors:
+        raise RuntimeError("phase 17 failed on the ranks:\n" + "\n".join(
+            errors))
+    return [results[r] for r in range(world)]
+
+
+def phase_parallel(device, nuts_ref=None):
+    """Phase 17: (a) the kernel API; (b)-(d) on 2 gloo ranks sharing the
+    card, against one-rank references computed here first; (e) a one-rank
+    NCCL group running (c)'s HODLR case; (f) the port's dry run
+    (``entry.dryrun_multichip``) on the card. ``nuts_ref`` is phase 11's
+    float64 ``(samples, stats, samples_per_sec)`` at ``NUTS_STEPS`` (8
+    chains in one batch), reported beside (d)'s check when given."""
+    import torch
+    import torch.distributed as dist
+    from george_tpu_torch import parallel
+    from george_tpu_torch.sampling import run_ensemble
+
+    t_phase = time.perf_counter()
+    out = {"kernels": _p17_kernel_shapes()}
+    torch.cuda.empty_cache()
+    out["a"] = phase_kernel_api(device)
+    torch.cuda.empty_cache()
+
+    # one-rank references, on this process
+    t0 = time.perf_counter()
+    ref = {}
+    x, y, yerr, kernel = smooth_dataset(N_MAIN)
+    import george_tpu_torch as gtt
+
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                device=device, dtype=torch.float64)
+    gp.compute(x, yerr)
+    mu, var = gp.predict(y, np.linspace(0.0, 1000.0, P17_T_MESH),
+                         return_var=True)
+    ref["mesh"] = {"ll": gp.log_likelihood(y),
+                   "grad": gp.grad_log_likelihood(y), "mu": mu, "var": var}
+    del gp
+    for which in ("hodlr", "sparse", "hmatrix"):
+        gp, yy, t = _p17_predict_gps(which)
+        t1 = time.perf_counter()
+        ref[which] = gp.predict(yy, t[_p17_ref_points(which)],
+                                return_var=True)
+        sync(device)
+        ref[which + "_s"] = time.perf_counter() - t1
+        del gp
+        torch.cuda.empty_cache()
+    # the unsharded NUTS run that (d) is held to: the chains evaluated 4
+    # at a time, the batch of each rank (a chain rounds by its batch, and
+    # the warmup's adaptation amplifies that into different draws)
+    from george_tpu_torch.sampling.hmc import _sample
+
+    _, log_prob, v0, p0 = nuts_model(device, torch.float64)
+    p0_t = torch.as_tensor(p0, device=device)
+    _sample(1, p0_t, log_prob, 1, 1, _chain_batch=4, **P17_NUTS_KW)
+    sync(device)
+    t1 = time.perf_counter()
+    samples, stats = _sample(0, p0_t, log_prob, NUTS_STEPS, NUTS_STEPS,
+                             _chain_batch=4, **P17_NUTS_KW)
+    sync(device)
+    seconds = time.perf_counter() - t1
+    ref["nuts"] = (samples, stats,
+                   samples.shape[0] * samples.shape[1] / seconds)
+    walkers = torch.as_tensor(_p17_walkers(v0), device=device)
+    ref["ensemble"] = [a.cpu().numpy() for a in run_ensemble(
+        3, walkers, torch.func.vmap(log_prob), 50)]
+    out["reference_s"] = time.perf_counter() - t0
+    log("parallel: one-rank references %.1f s" % out["reference_s"])
+    torch.cuda.empty_cache()
+
+    # (b)-(d) on 2 ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = _p17_spawn(P17_RANKS, ["_p17_mesh_f64", "_p17_mesh_f32",
+                                   "_p17_sharded_predict", "_p17_samplers"])
+    out["ranks_s"] = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        log("parallel rank %d: backend %s; all_reduce, all_gather, broadcast "
+            "of CUDA tensors %s; tasks %s" % (
+                r, res["backend"],
+                (res["all_reduce_ok"], res["all_gather_ok"],
+                 res["broadcast_ok"]),
+                {k: round(v, 1) for k, v in res.items() if k.endswith("_s")}))
+        if res["backend"] != "gloo" or not (
+                res["all_reduce_ok"] and res["all_gather_ok"]
+                and res["broadcast_ok"]):
+            raise RuntimeError("phase 17: rank %d's collectives failed" % r)
+    out["b"] = _p17_check_mesh(ranks, ref["mesh"])
+    out["c"] = _p17_check_predict(ranks, ref)
+    out["d"] = _p17_check_samplers(ranks, ref, nuts_ref)
+
+    # (e) NCCL, one rank
+    t0 = time.perf_counter()
+    (nccl,) = _p17_spawn(1, ["_p17_predict_hodlr"])
+    e = nccl["_p17_predict_hodlr"]
+    pts = _p17_ref_points("hodlr")
+    err = max(_max_rel(e["mu"][pts], ref["hodlr"][0]),
+              _max_rel(e["var"][pts], ref["hodlr"][1]))
+    out["e"] = {"backend": nccl["backend"], "seconds": e["seconds"],
+                "rel_vs_predict": err, "launches": e["launches_compute"]}
+    log("parallel (e): a one-rank %s group, CUDA collectives %s; "
+        "sharded_predict of HODLR n=%d at %d points %.3f s, rel vs "
+        "gp.predict %.3e (limit 1e-8); leaf launches %s"
+        % (nccl["backend"], (nccl["all_reduce_ok"], nccl["all_gather_ok"],
+                             nccl["broadcast_ok"]), N_MAIN, P17_T_HODLR,
+           e["seconds"], err, e["launches_compute"]))
+    if nccl["backend"] != "nccl" or not err <= 1e-8 or not (
+            nccl["all_reduce_ok"] and nccl["all_gather_ok"]
+            and nccl["broadcast_ok"]):
+        raise RuntimeError("phase 17 (e): the NCCL group failed")
+    out["e_s"] = time.perf_counter() - t0
+
+    # (f) the port's multi-rank dry run on the card
+    from george_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    f = dryrun_multichip(P17_RANKS, timeout=P17_JOIN_S)
+    out["f"] = dict(f, seconds=time.perf_counter() - t0)
+    log("parallel (f): entry.dryrun_multichip(%d) on the card, %.1f s: %d "
+        "walkers, sharded ensemble sweep vs unsharded %.3e (limit 1e-8), "
+        "row-sharded HODLR ll %.6f (sharded %s)"
+        % (P17_RANKS, out["f"]["seconds"], f["nwalkers"],
+           f["ensemble_vs_unsharded"], f["hodlr_ll"], f["hodlr_sharded"]))
+    if not (f["hodlr_sharded"] and np.isfinite(f["hodlr_ll"])
+            and f["ensemble_vs_unsharded"] <= 1e-8):
+        raise RuntimeError("phase 17 (f): the dry run on the card failed")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("parallel: phase 17 %.1f s" % out["seconds"])
+    return out
+
+
+def _p17_mesh_f64(mesh):
+    import torch
+
+    return _p17_mesh_gp(mesh, torch.float64)
+
+
+def _p17_mesh_f32(mesh):
+    import torch
+
+    return _p17_mesh_gp(mesh, torch.float32)
+
+
+def _p17_predict_hodlr(mesh):
+    from george_tpu_torch import parallel
+
+    stop = _p17_record()
+    gp, y, t = _p17_predict_gps("hodlr")
+    compute = stop()
+    sync("cuda")
+    t0 = time.perf_counter()
+    mu, var = parallel.sharded_predict(mesh, gp, y, t)
+    sync("cuda")
+    return {"mu": mu, "var": var, "seconds": time.perf_counter() - t0,
+            "launches_compute": compute}
+
+
+def _p17_check_mesh(ranks, ref):
+    """(b): each rank's sharded GP against the anchor and the one-rank
+    run (the JAX test's ``np.allclose`` bounds)."""
+    out = {}
+    for r, res in enumerate(ranks):
+        m64, m32 = res["_p17_mesh_f64"], res["_p17_mesh_f32"]
+        rel64 = check_anchor("parallel (b) rank %d f64 mesh" % r, m64["ll"],
+                             ANCHOR_F64, N_MAIN)
+        rel32 = check_anchor("parallel (b) rank %d f32 mesh" % r, m32["ll"],
+                             ANCHOR_F32, N_MAIN)
+        grad_ok = bool(np.allclose(m64["grad"], ref["grad"], atol=1e-6))
+        mu_ok = bool(np.allclose(m64["mu"], ref["mu"], atol=1e-8))
+        var_ok = bool(np.allclose(m64["var"], ref["var"], atol=1e-8))
+        dg = float(np.max(np.abs(m64["grad"] - ref["grad"])))
+        dm = float(np.max(np.abs(m64["mu"] - ref["mu"])))
+        dv = float(np.max(np.abs(m64["var"] - ref["var"])))
+        row = {"ll_rel_anchor_f64": rel64, "ll_rel_anchor_f32": rel32,
+               "grad_max_abs_vs_1rank": dg, "mu_max_abs_vs_1rank": dm,
+               "var_max_abs_vs_1rank": dv}
+        for tag, m in (("f64", m64), ("f32", m32)):
+            row[tag] = {k: m[k] for k in ("compute_s", "launches", "peak_gb",
+                                          "local_leaves", "sharded")}
+        row["f64"]["eval_s"] = m64["eval_s"]
+        out[r] = row
+        log("parallel (b) rank %d: sharded %s, %d local leaves; f64 compute "
+            "%.3f s, value + gradient %.3f s, peak %.2f GB, leaf launches "
+            "%s; f32 compute %.3f s, peak %.2f GB, leaf launches %s; vs one "
+            "rank: gradient %.3e, mean %.3e, variance %.3e (np.allclose "
+            "atol 1e-6, 1e-8, 1e-8: %s)"
+            % (r, m64["sharded"], m64["local_leaves"], m64["compute_s"],
+               m64["eval_s"], m64["peak_gb"], m64["launches"],
+               m32["compute_s"], m32["peak_gb"], m32["launches"], dg, dm, dv,
+               (grad_ok, mu_ok, var_ok)))
+        if not (grad_ok and mu_ok and var_ok and m64["sharded"]
+                and m64["local_leaves"] == 256
+                and m64["launches"]["leaf"] > 0
+                and m64["launches"]["leaf_B"] == [256]
+                and m32["launches"]["leaf"] > 0):
+            raise RuntimeError("parallel (b): rank %d disagrees or did not "
+                               "launch the leaf kernel on its leaves" % r)
+    return out
+
+
+def _p17_check_predict(ranks, ref):
+    """(c): ``sharded_predict`` on each solver against ``gp.predict`` on
+    one rank (1e-8 of the largest value), with each rank's launches."""
+    out = {}
+    for which in ("hodlr", "sparse", "hmatrix"):
+        mu_ref, var_ref = ref[which]
+        row = {"predict_1rank_s": ref[which + "_s"]}
+        for r, res in enumerate(ranks):
+            c = res["_p17_sharded_predict"][which]
+            pts = _p17_ref_points(which)
+            err = max(_max_rel(c["mu"][pts], mu_ref),
+                      _max_rel(c["var"][pts], var_ref))
+            row[r] = {"rel": err, "seconds": c["seconds"],
+                      "columns": c["columns"], "launches": c["launches"],
+                      "launches_compute": c["launches_compute"]}
+            log("parallel (c) %s rank %d: sharded_predict of %d columns "
+                "%.3f s (gp.predict on one rank at %d points: %.3f s), rel "
+                "vs gp.predict %.3e (limit 1e-8); launches in compute %s, "
+                "in predict %s"
+                % (which, r, c["columns"], c["seconds"], len(mu_ref),
+                   ref[which + "_s"], err, c["launches_compute"],
+                   c["launches"]))
+            if not err <= 1e-8:
+                raise RuntimeError("parallel (c) %s: rank %d disagrees"
+                                   % (which, r))
+            if which == "sparse" and c["launches"]["dia"] == 0:
+                raise RuntimeError("parallel (c): sharded sparse prediction "
+                                   "never launched the DIA kernel")
+            if which == "hodlr" and c["launches_compute"]["leaf"] == 0:
+                raise RuntimeError("parallel (c): the HODLR compute never "
+                                   "launched the leaf kernel")
+        out[which] = row
+    return out
+
+
+def _p17_check_samplers(ranks, ref, nuts_ref):
+    """(d): sharded NUTS against the unsharded run of 4-chain batches with
+    the same seed (the JAX test's bounds), beside phase 11's run of one
+    8-chain batch (not held: it rounds differently); the ensemble against
+    unsharded."""
+    def host(samples, stats):
+        return (samples.double().cpu().numpy(),
+                stats["step_size"].double().cpu().numpy(),
+                stats["inv_mass"]["sigma"].double().cpu().numpy())
+
+    s_ref, eps_ref, sig_ref = host(*ref["nuts"][:2])
+    out = {"samples_per_sec_1rank_batch4": ref["nuts"][2],
+           "samples_per_sec_1rank": None if nuts_ref is None
+           else nuts_ref[2]}
+    for r, res in enumerate(ranks):
+        d = res["_p17_samplers"]
+        ds = float(np.max(np.abs(d["samples"] - s_ref)))
+        de = float(np.max(np.abs(d["step_size"] - eps_ref) / eps_ref))
+        dm = float(np.max(np.abs(d["sigma"] - sig_ref)))
+        ens = [float(np.max(np.abs(a - b)))
+               for a, b in zip(d["ensemble"], ref["ensemble"])]
+        d8 = None
+        if nuts_ref is not None:
+            s8 = host(*nuts_ref[:2])[0]
+            d8 = float(np.max(np.abs(d["samples"] - s8)))
+        out[r] = {"samples_max_abs": ds, "step_size_max_rel": de,
+                  "inv_mass_max_abs": dm, "ensemble_max_abs": ens,
+                  "samples_max_abs_vs_one_batch_of_8": d8,
+                  "samples_per_sec_2ranks": d["samples_per_sec"],
+                  "seconds": d["seconds"],
+                  "leapfrog_evals": d["leapfrog_evals"]}
+        log("parallel (d) rank %d: NUTS n=512 f64 on 2 ranks (4 chains "
+            "each) %.3f samples/s in %.3f s (one rank: %.3f samples/s in "
+            "batches of 4, %s in one batch of 8); vs the unsharded run in "
+            "batches of 4: draws %.3e (limit 1e-6), step size rel %.3e "
+            "(1e-9), inverse mass %.3e (1e-12); vs phase 11's one batch of "
+            "8 (not held): draws %s; ensemble (32 walkers, 50 steps) "
+            "chain, logp, accept %s (limit 1e-12)"
+            % (r, d["samples_per_sec"], d["seconds"], ref["nuts"][2],
+               "n/a" if nuts_ref is None else "%.3f" % nuts_ref[2], ds, de,
+               dm, "n/a" if d8 is None else "%.3e" % d8,
+               ["%.3e" % v for v in ens]))
+        if not (ds <= 1e-6 and de <= 1e-9 and dm <= 1e-12
+                and max(ens) <= 1e-12):
+            raise RuntimeError("parallel (d): rank %d's samplers disagree "
+                               "with the unsharded runs" % r)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the unsharded paths' times, for two trees of the port in one call
+# ---------------------------------------------------------------------------
+
+def _best_of(fn, runs=3):
+    """Seconds of ``fn()`` between synchronizations: ``(best, all)``."""
+    ts = []
+    for _ in range(runs):
+        sync("cuda")
+        t0 = time.perf_counter()
+        fn()
+        sync("cuda")
+        ts.append(time.perf_counter() - t0)
+    return min(ts), ts
+
+
+def unsharded_times():
+    """This process's port on its unsharded HODLR, sparse and NUTS paths:
+    the f32 Hutchinson likelihood + gradient at the smooth n = 1e5
+    (``phase_slice_f32``'s protocol), the f64 likelihood and exact
+    gradient there, the sparse iterative f32 compute, likelihood and
+    gradient on bench_dia's data (best of 3 each), and NUTS at bench_nuts's
+    n = 512 configuration in float64 for ``NUTS_STEPS`` + ``NUTS_STEPS``."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.sampling import sample_nuts
+
+    out = {}
+    f32, evaluate, thetas, args = phase_slice_f32("cuda", N_MAIN)
+    out["hodlr_f32_hutchinson_ms_per_eval"] = f32["ms_per_eval"]
+    out["hodlr_f32_hutchinson_ms_per_eval_all"] = f32["ms_per_eval_all"]
+    del evaluate, thetas, args
+    x, y, yerr, kernel = smooth_dataset(N_MAIN)
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                device="cuda", dtype=torch.float64)
+    gp.compute(x, yerr)
+    out["hodlr_f64_log_likelihood_s"], _ = _best_of(
+        lambda: gp.log_likelihood(y))
+    out["hodlr_f64_grad_s"], out["hodlr_f64_grad_s_all"] = _best_of(
+        lambda: gp.grad_log_likelihood(y))
+    del gp
+    torch.cuda.empty_cache()
+    x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
+    gp = gtt.GP(kernel, solver=gtt.SparseSolver, direct=False, device="cuda",
+                dtype=torch.float32)
+    gp.compute(x, yerr)
+    for name, fn in (("compute", lambda: gp.compute(x, yerr)),
+                     ("log_likelihood", lambda: gp.log_likelihood(y)),
+                     ("grad", lambda: gp.grad_log_likelihood(y))):
+        best, all_ = _best_of(fn)
+        out["sparse_f32_%s_s" % name] = best
+        out["sparse_f32_%s_s_all" % name] = all_
+    del gp
+    torch.cuda.empty_cache()
+    _, log_prob, _, p0 = nuts_model("cuda", torch.float64)
+    kw = dict(P17_NUTS_KW)
+    sample_nuts(1, log_prob, p0, num_warmup=1, num_samples=1, **kw)
+    sync("cuda")
+    t0 = time.perf_counter()
+    samples, stats = sample_nuts(0, log_prob, p0, num_warmup=NUTS_STEPS,
+                                 num_samples=NUTS_STEPS, **kw)
+    sync("cuda")
+    seconds = time.perf_counter() - t0
+    out["nuts_f64_samples_per_sec"] = (samples.shape[0] * samples.shape[1]
+                                       / seconds)
+    out["nuts_f64_leapfrog_evals"] = stats["leapfrog_evals"]
+    return out
+
+
+def unsharded_times_ab(roots):
+    """``--unsharded-times ROOT ...``: :func:`unsharded_times` once per
+    ``ROOT`` (a checkout of the port; give two in turns, as ``A B B A``,
+    to compare them on one card), each in a process of its own that
+    imports ``george_tpu_torch`` from that checkout and builds its kernels
+    there. Prints each run's JSON and, last, all of them."""
+    smi = phase_device()
+    runs = []
+    for root in roots:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--unsharded-child",
+             os.path.abspath(root)], capture_output=True, text=True,
+            timeout=900)
+        sys.stdout.write(proc.stdout[-4000:])
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-8000:])
+            raise SystemExit("chip_smoke: the unsharded times of %s failed"
+                             % root)
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(dict(row, root=root))
+        log("unsharded times, %s: %s" % (root, json.dumps(row)))
+    log(smi)
+    print(json.dumps({"unsharded_times": runs, "device": smi}), flush=True)
+
+
+def _unsharded_child(root):
+    """One run of :func:`unsharded_times_ab`, on the port under ``root``."""
+    sys.path.insert(0, root)
+    import george_tpu_torch
+    from george_tpu_torch.ops import _build
+
+    pkg = os.path.dirname(os.path.abspath(george_tpu_torch.__file__))
+    if os.path.dirname(pkg) != root:
+        raise SystemExit("chip_smoke: george_tpu_torch came from %s, not %s"
+                         % (pkg, root))
+    _build.build()
+    _build.load()
+    print(json.dumps(unsharded_times()), flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2342,7 +3212,28 @@ def main():
         name = str(dt).split(".")[-1]
         nuts[name], (samples, stats) = phase_nuts_512(dt)
         ckpt[name] = phase_checkpoint(samples, stats, 0)
+        if dt == torch.float64:     # phase 17's unsharded reference
+            nuts_ref = (samples, stats, nuts[name]["samples_per_sec"])
         del samples, stats
+    torch.cuda.empty_cache()
+
+    # phase 17: parallel and the kernel API; each rank counts its own
+    # launches from 0 right before each of its paths
+    log("parallel: starting %.1f s into the run"
+        % (time.perf_counter() - t_start))
+    par = phase_parallel(device, nuts_ref)
+    del nuts_ref
+    mesh_b = [par["b"][r]["f64"]["launches"] for r in range(P17_RANKS)]
+    dw = par["kernels"]["dia_stream_width_float64"]
+    dk = par["kernels"]["dia_r%d_float64" % dw]
+    pred_sparse = [par["c"]["sparse"][r]["launches"]
+                   for r in range(P17_RANKS)]
+    for r in range(P17_RANKS):
+        log("parallel main path, rank %d: leaf kernel launches %d (B %s) "
+            "under HODLRSolver(mesh=) f64; DIA kernel launches %d (r %s) "
+            "under sharded_predict on the sparse solver"
+            % (r, mesh_b[r]["leaf"], mesh_b[r]["leaf_B"],
+               pred_sparse[r]["dia"], pred_sparse[r]["dia_r"]))
 
     log(json.dumps({"summary": {
         "build_s": build_s, "cusolver_ms": kern["cusolver_ms"],
@@ -2351,7 +3242,7 @@ def main():
         "sparse_direct": direct, "sparse_iterative": it,
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
         "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
-        "lcm": lcm, "hmatrix": hm, "checkpoint": ckpt,
+        "lcm": lcm, "hmatrix": hm, "checkpoint": ckpt, "parallel": par,
         "seconds": time.perf_counter() - t_start}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library
@@ -2385,7 +3276,20 @@ def main():
          "launches_lcm_path": launches_lcm,
          "launches_selfcheck_knn_path": launches_selfcheck,
          "launches_hmatrix_path": launches_hm["hmatrix_solver"],
-         "launches_hmatrix_weak_comparison": launches_hm["weak_comparison"]},
+         "launches_hmatrix_weak_comparison": launches_hm["weak_comparison"],
+         "launches_mesh_per_rank": [b["leaf"] for b in mesh_b],
+         "mesh_launch_B_per_rank": [b["leaf_B"] for b in mesh_b],
+         "launches_in_mesh": "HODLRSolver(mesh=) f64 on 2 gloo ranks "
+                             "sharing the card, each rank's own count",
+         "ms_256x196_f64": par["kernels"]["leaf_256x196_float64"]["ms"],
+         "plain_ms_256x196_f64":
+             par["kernels"]["leaf_256x196_float64"]["plain_ms"],
+         "bound_ms_256x196_f64":
+             par["kernels"]["leaf_256x196_float64"]["bound_ms"],
+         "library_ms_256x196_f64":
+             par["kernels"]["leaf_256x196_float64"]["library_ms"],
+         "max_abs_err_256x196_f64":
+             par["kernels"]["leaf_256x196_float64"]["max_abs_err"]},
         {"name": "dia_matvec", "route": "cuda",
          "source": "george_tpu_torch/csrc/dia.cu",
          "replaces": "george_tpu/ops/dia.py:96",
@@ -2405,7 +3309,13 @@ def main():
          "bound_ms_r17": r17["bound_ms"], "library_ms_r17": r17["library_ms"],
          "max_abs_err_r17": r17["max_abs_err"],
          "launches_in": "sparse iterative f32 path",
-         "launches_log_prob": launches_lp},
+         "launches_log_prob": launches_lp,
+         "launches_sharded_predict_per_rank": [c["dia"] for c in pred_sparse],
+         "r_sharded_predict_per_rank": [c["dia_r"] for c in pred_sparse],
+         "ms_r%d_f64" % dw: dk["ms"], "plain_ms_r%d_f64" % dw: dk["plain_ms"],
+         "bound_ms_r%d_f64" % dw: dk["bound_ms"],
+         "library_ms_r%d_f64" % dw: dk["library_ms"],
+         "max_abs_err_r%d_f64" % dw: dk["max_abs_err"]},
         {"name": "cholesky_tiled", "route": "cuda",
          "source": "george_tpu_torch/csrc/chol.cu",
          "replaces": "george_tpu/ops/chol.py:61",
@@ -2427,4 +3337,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--unsharded-times"]:
+        unsharded_times_ab(sys.argv[2:])
+    elif sys.argv[1:2] == ["--unsharded-child"]:
+        _unsharded_child(sys.argv[2])
+    else:
+        main()

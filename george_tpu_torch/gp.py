@@ -587,7 +587,8 @@ class GP(ModelSet):
             jac = self._call_white_noise_gradient(self._x)
             pieces.append(0.5 * jac @ scale)
         if len(self.kernel):
-            dK = self.kernel.get_gradient(self._x)  # (n, n, n_params)
+            dK = self.kernel.get_gradient(
+                self._x, device=self.device)  # (n, n, n_params)
             pieces.append(
                 0.5 * np.tensordot(dK, info, axes=[(0, 1), (0, 1)])
             )
@@ -796,11 +797,13 @@ class GP(ModelSet):
 
     def get_matrix(self, x1, x2=None):
         """The covariance matrix at coordinates ``x1`` (cross-covariance
-        against ``x2`` if given), as float64 numpy."""
+        against ``x2`` if given), evaluated on the GP's device, as float64
+        numpy."""
         x1 = self.parse_samples(x1)
         if x2 is None:
-            return self.kernel.get_value(x1)
-        return self.kernel.get_value(x1, self.parse_samples(x2))
+            return self.kernel.get_value(x1, device=self.device)
+        return self.kernel.get_value(x1, self.parse_samples(x2),
+                                     device=self.device)
 
     # Modeling-protocol synonyms.
     def get_value(self, *args, **kwargs):

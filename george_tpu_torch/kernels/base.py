@@ -15,9 +15,12 @@ leaf and skeleton blocks are calls on suitably unsqueezed index gathers.
 Hyperparameter gradients come from autograd (``torch.func.jacfwd`` of the
 block function) instead of hand-derived formulas.
 
-The stateful methods (``get_value``/``get_gradient``) keep the JAX
-package's host API and shapes: numpy in, numpy out, evaluated on the CPU
-in float64.
+The stateful methods (``get_value``, ``get_gradient``, the ``nns=``
+sparse forms, ``get_x1_gradient``/``get_x2_gradient`` and the ``test_*``
+finite-difference checks) keep george's API and return types (numpy, or
+``scipy.sparse.csr_matrix`` for ``nns=``) and evaluate in float64 on
+``device`` (default ``"cuda"``; pass ``device="cpu"`` on a host without a
+card).
 """
 
 import numpy as np
@@ -163,8 +166,13 @@ class Kernel(ModelSet):
         """Width of the input points consumed by :attr:`pair_fn`."""
         return self.ndim
 
+    def get_cutoff(self):
+        """Compact-support radius beyond which the kernel is exactly
+        zero (``inf``: no compact support)."""
+        return np.inf
+
     # ------------------------------------------------------------------
-    # Evaluation API (george-compatible, host numpy in and out)
+    # Evaluation API (george-compatible: numpy in, numpy out)
     # ------------------------------------------------------------------
 
     def parse_points(self, x):
@@ -180,26 +188,216 @@ class Kernel(ModelSet):
         """Full parameter vector as a CPU float64 tensor."""
         return torch.as_tensor(self.parameter_vector, dtype=torch.float64)
 
-    def get_value(self, x1, x2=None, diag=False):
-        """Evaluate the covariance matrix (or its diagonal) on the host."""
-        x1 = torch.as_tensor(self.parse_points(x1))
-        x2 = x1 if x2 is None else torch.as_tensor(self.parse_points(x2))
+    def _points(self, x1, x2, device, dtype=torch.float64):
+        """``(theta, x1, x2)`` as ``dtype`` tensors on ``device``; ``x2``
+        defaults to ``x1``."""
+        like = {"device": torch.device(device), "dtype": dtype}
+        a = torch.as_tensor(self.parse_points(x1)).to(**like)
+        b = a if x2 is None else torch.as_tensor(
+            self.parse_points(x2)).to(**like)
+        return self.theta.to(**like), a, b
+
+    def get_value(self, x1, x2=None, diag=False, nns=None, device="cuda",
+                  dtype=torch.float64):
+        """The covariance matrix (or its diagonal), evaluated on
+        ``device`` in ``dtype`` (default float64) and returned as numpy.
+
+        With ``nns`` (any non-``None`` value, ``x2`` unset), evaluates only
+        the pairs within :func:`get_cutoff` of each other and returns a
+        ``scipy.sparse.csr_matrix``: ``nns`` may be a ``(nbr_idx,
+        row_ptr)`` CSR structure, a ragged per-row listing or a
+        rectangular kNN matrix (``-1`` = missing; its symmetrized union
+        pattern is used); anything else recomputes the radius
+        neighbours."""
+        if x2 is None and not diag and nns is not None:
+            from ..neighbors import knn_matrix_to_csr, normalize_nns
+
+            x = self.parse_points(x1)
+            nns = normalize_nns(nns)
+            if isinstance(nns, tuple):
+                pass
+            elif np.ndim(nns) == 2 and len(nns) == len(x):
+                nns = knn_matrix_to_csr(nns, len(x))
+            else:
+                nns = None
+            return self._get_value_sparse(x, nns, device, dtype)
+        theta, a, b = self._points(x1, x2, device, dtype)
         with torch.no_grad():
             if diag:
-                return self.pair_fn(self.theta, x1, x2).numpy()
-            return self.gram(self.theta, x1, x2).numpy()
+                return self.pair_fn(theta, a, b).cpu().numpy()
+            return self.gram(theta, a, b).cpu().numpy()
 
-    def get_gradient(self, x1, x2=None, include_frozen=False):
-        """Hyperparameter gradient, shape ``(n1, n2, n_active)``."""
+    def _neighbor_csr(self, x):
+        """CSR neighbour structure within the compact-support cutoff (kept
+        in ``nns_saved`` for :func:`get_gradient`)."""
+        from ..neighbors import radius_neighbors_csr
+
+        nbr_idx, row_ptr = radius_neighbors_csr(x, float(self.get_cutoff()))
+        self.nns_saved = (nbr_idx, row_ptr)
+        return nbr_idx, row_ptr
+
+    def neighbors_to_csr(self, neighbors):
+        """Flatten a ragged per-row neighbour listing (e.g. the output of
+        ``BallTree.query_radius``) into ``(nbr_idx, row_ptr)`` CSR index
+        arrays."""
+        from ..neighbors import ragged_to_csr
+
+        return ragged_to_csr(neighbors)
+
+    def _pair_tensors(self, x, nns, device, dtype):
+        """The stored pairs of a CSR structure as device tensors: ``(theta,
+        x[rows], x[cols], (nbr_idx, row_ptr))``."""
+        nbr_idx, row_ptr = (np.asarray(a, dtype=np.int64) for a in nns)
+        theta, xt, _ = self._points(x, None, device, dtype)
+        rows = torch.repeat_interleave(
+            torch.arange(len(x), device=xt.device),
+            torch.as_tensor(np.diff(row_ptr), device=xt.device))
+        cols = torch.as_tensor(nbr_idx, device=xt.device)
+        return theta, xt[rows], xt[cols], (nbr_idx, row_ptr)
+
+    def _get_value_sparse(self, x, nns=None, device="cuda",
+                          dtype=torch.float64):
+        """CSR covariance over the pairs of ``nns`` (``(nbr_idx,
+        row_ptr)``) or of the radius neighbours; the pairs are evaluated
+        on ``device``."""
+        from scipy.sparse import csr_matrix
+
+        if nns is not None:
+            self.nns_saved = nns
+        else:
+            nns = self._neighbor_csr(x)
+        theta, xa, xb, (nbr_idx, row_ptr) = self._pair_tensors(
+            x, nns, device, dtype)
+        with torch.no_grad():
+            vals = self.pair_fn(theta, xa, xb).cpu().numpy()
+        return csr_matrix((vals, nbr_idx, row_ptr), shape=(len(x), len(x)))
+
+    def get_gradient(self, x1, x2=None, include_frozen=False, nns=None,
+                     device="cuda", dtype=torch.float64):
+        """Hyperparameter gradient, shape ``(n1, n2, n_active)``, evaluated
+        on ``device`` in ``dtype`` by forward mode. With ``nns`` (``x2``
+        unset): one ``scipy.sparse.csr_matrix`` per active parameter over
+        the neighbour structure of the last sparse :func:`get_value` (or
+        the radius neighbours)."""
         mask = (
             np.ones(self.full_size, dtype=bool)
             if include_frozen
             else self.unfrozen_mask
         )
-        x1 = torch.as_tensor(self.parse_points(x1))
-        x2 = x1 if x2 is None else torch.as_tensor(self.parse_points(x2))
-        g = torch.func.jacfwd(lambda th: self.gram(th, x1, x2))(self.theta)
-        return g.detach().numpy()[:, :, mask]
+        if x2 is None and nns is not None:
+            return self._get_gradient_sparse(self.parse_points(x1), mask,
+                                             device, dtype)
+        theta, a, b = self._points(x1, x2, device, dtype)
+        g = torch.func.jacfwd(lambda th: self.gram(th, a, b))(theta)
+        return g.detach().cpu().numpy()[:, :, mask]
+
+    def _get_gradient_sparse(self, x, mask, device, dtype):
+        from scipy.sparse import csr_matrix
+
+        nns = getattr(self, "nns_saved", None)
+        if nns is None:
+            nns = self._neighbor_csr(x)
+        theta, xa, xb, (nbr_idx, row_ptr) = self._pair_tensors(
+            x, nns, device, dtype)
+        g = torch.func.jacfwd(lambda th: self.pair_fn(th, xa, xb))(theta)
+        g = g.detach().cpu().numpy()
+        return [
+            csr_matrix((g[:, i], nbr_idx, row_ptr), shape=(len(x), len(x)))
+            for i in range(g.shape[1])
+            if mask[i]
+        ]
+
+    def _x_gradient(self, which, x1, x2, device):
+        """``d k(x1_i, x2_j) / d x{which}`` for every pair, shape ``(n1,
+        n2, d)``: reverse mode through the sum of the pairwise block, in
+        which each entry depends on its own copy of the point only."""
+        theta, a, b = self._points(x1, x2, device)
+        shape = (a.shape[0], b.shape[0], a.shape[1])
+        a = a[:, None, :].expand(shape).contiguous()
+        b = b[None, :, :].expand(shape).contiguous()
+        if which == 1:
+            g = torch.func.grad(lambda p: self.pair_fn(theta, p, b).sum())(a)
+        else:
+            g = torch.func.grad(lambda p: self.pair_fn(theta, a, p).sum())(b)
+        return g.detach().cpu().numpy()
+
+    def get_x1_gradient(self, x1, x2=None, device="cuda"):
+        """Gradient of every entry in its first point, ``(n1, n2, d)``."""
+        return self._x_gradient(1, x1, x2, device)
+
+    def get_x2_gradient(self, x1, x2=None, device="cuda"):
+        """Gradient of every entry in its second point, ``(n1, n2, d)``."""
+        return self._x_gradient(2, x1, x2, device)
+
+    # ------------------------------------------------------------------
+    # Finite-difference self-tests: thin wrappers over one central-
+    # difference probe, as in the JAX package
+    # ------------------------------------------------------------------
+
+    def _fd_probe(self, value_fn, read, write, coord, eps):
+        """Central difference of ``value_fn()`` as one coordinate of a
+        mutable state vector is nudged: ``read()`` returns the state,
+        ``write(state)`` installs it, ``coord`` indexes into it."""
+        state = read()
+        pinned = state[coord]
+        samples = {}
+        for signed in (eps, -eps):
+            state[coord] = pinned + signed
+            write(state)
+            samples[signed] = value_fn()
+        state[coord] = pinned
+        write(state)
+        return (samples[eps] - samples[-eps]) / (2.0 * eps)
+
+    def test_gradient(self, x1, x2=None, eps=1.32e-6, device="cuda",
+                      **kwargs):
+        """Check :func:`get_gradient` against central differences of
+        :func:`get_value` (``np.allclose`` options in ``kwargs``)."""
+        names = self.get_parameter_names()
+        analytic = self.get_gradient(x1, x2=x2, device=device)
+        value_fn = lambda: self.get_value(x1, x2=x2, device=device)
+        for i in range(len(names)):
+            fd = self._fd_probe(
+                value_fn,
+                self.get_parameter_vector, self.set_parameter_vector,
+                (i,), eps,
+            )
+            if not np.allclose(analytic[:, :, i], fd, **kwargs):
+                worst = np.max(np.abs(analytic[:, :, i] - fd))
+                raise AssertionError(
+                    "analytic gradient of %s w.r.t. %r deviates from the "
+                    "central difference by up to %g"
+                    % (type(self).__name__, names[i], worst)
+                )
+
+    def _test_x_gradient(self, which, x1, x2, eps, device, kwargs):
+        kwargs.setdefault("atol", 0.5 * eps)
+        x1 = np.array(x1, dtype=np.float64)
+        analytic = self._x_gradient(which, x1, x2, device)
+        # a missing x2 is a copy: only the probed point array moves
+        x2 = np.array(x1 if x2 is None else x2, dtype=np.float64)
+        xp = x1 if which == 1 else x2
+        value_fn = lambda: self.get_value(x1, x2=x2, device=device)
+        for i in range(len(xp)):
+            for k in range(self.ndim):
+                # the point arrays are nudged in place, so the install
+                # callback has nothing to do
+                fd = self._fd_probe(
+                    value_fn, lambda: xp, lambda _: None, (i, k), eps
+                )
+                got = analytic[i, :, k] if which == 1 else analytic[:, i, k]
+                ref = fd[i] if which == 1 else fd[:, i]
+                assert np.allclose(got, ref, **kwargs), (
+                    "input-gradient mismatch at point %d axis %d" % (i, k)
+                )
+
+    def test_x1_gradient(self, x1, x2=None, eps=1.32e-6, device="cuda",
+                         **kwargs):
+        self._test_x_gradient(1, x1, x2, eps, device, kwargs)
+
+    def test_x2_gradient(self, x1, x2=None, eps=1.32e-6, device="cuda",
+                         **kwargs):
+        self._test_x_gradient(2, x1, x2, eps, device, kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +453,9 @@ class Sum(_operator):
     def _compile(self):
         return self._compile_binary(lambda a, b: a + b)
 
+    def get_cutoff(self):
+        return max(self.k1.get_cutoff(), self.k2.get_cutoff())
+
     def __repr__(self):
         return "{0} + {1}".format(self.k1, self.k2)
 
@@ -265,6 +466,11 @@ class Product(_operator):
 
     def _compile(self):
         return self._compile_binary(lambda a, b: a * b)
+
+    def get_cutoff(self):
+        # a product with a compactly supported factor is compactly
+        # supported
+        return min(self.k1.get_cutoff(), self.k2.get_cutoff())
 
     def __repr__(self):
         return "{0} * {1}".format(self.k1, self.k2)

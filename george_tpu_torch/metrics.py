@@ -26,7 +26,7 @@ import torch
 
 from .modeling import Model
 
-__all__ = ["Metric", "Subspace"]
+__all__ = ["Metric", "Subspace", "metric_param_count"]
 
 
 class Subspace(object):
@@ -150,6 +150,18 @@ class Metric(Model):
 # ---------------------------------------------------------------------------
 # Functional (torch) side
 # ---------------------------------------------------------------------------
+
+def metric_param_count(metric_type, naxes):
+    """Number of parameters of a metric of the given type over ``naxes``
+    axes."""
+    if metric_type == 0:
+        return 1
+    if metric_type == 1:
+        return naxes
+    if metric_type == 2:
+        return naxes * (naxes + 1) // 2
+    raise ValueError("unknown metric_type {0}".format(metric_type))
+
 
 def _cholesky_layout(n):
     """Where each packed log-Cholesky parameter lands in the flattened

@@ -54,7 +54,7 @@ from .chol import CTA_RESERVED_SMEM, H100, device_limits
 
 __all__ = ["dia_matvec", "dia_matvec_plain", "dia_matvec_cuda",
            "DiaOperator", "DiaPlan", "launch_plan", "band_range",
-           "uses_shared_memory", "H100"]
+           "uses_shared_memory", "stream_width", "H100"]
 
 # launches of the CUDA kernel in this process; only the launch shared by
 # dia_matvec_cuda and DiaOperator adds to it (read and reset it as
@@ -68,6 +68,7 @@ BARRIER_BYTES = 64           # the ring's mbarriers, ahead of the window
 ITEM_ROWS = 128              # rows that share one staged window of y
 ROW_TILE = 4                 # rows a thread owns when r > 1
 DEVICE_ROWS, DEVICE_THREADS = 128, 256   # the device-memory kernel's CTA
+DEVICE_COLS = 16             # its columns per pass over a row (kDevCols)
 
 
 def band_range(offsets):
@@ -271,6 +272,28 @@ def uses_shared_memory(D, r, dtype, device=None, limits=None):
     return launch_plan(1 << 20, D, r, dtype, limits).variant == "stream"
 
 
+def stream_width(n, D, r, dtype, limits=None):
+    """The columns one launch of an ``(n, r)`` block over ``D`` diagonals
+    takes: ``r`` when the streaming plan takes all of them; else ``w``,
+    the widest width such that the streaming plan takes every width from
+    ``DEVICE_COLS`` to ``w`` (launches that walk the table no more often
+    than the device-memory kernel's passes over a row do); else ``r``
+    (the device-memory kernel, kept simple, not fast). ``limits``
+    defaults to the current device's."""
+    if limits is None:
+        limits = device_limits()
+
+    def streams(w):
+        return launch_plan(n, D, w, dtype, limits).variant == "stream"
+
+    if streams(r):
+        return r
+    w = DEVICE_COLS - 1
+    while w + 1 < r and streams(w + 1):
+        w += 1
+    return w if w >= DEVICE_COLS else r
+
+
 # ---------------------------------------------------------------------------
 # the launch
 # ---------------------------------------------------------------------------
@@ -381,17 +404,36 @@ def dia_matvec_cuda(vals, offsets, diag, y):
     return _launch(vals, diag, y, d_min, D)
 
 
+def split_columns(apply, y, width):
+    """``apply(y)`` by blocks of at most ``width`` columns (one call when
+    ``y`` has no more), the results joined along the columns."""
+    if y.ndim == 1 or y.shape[1] <= width:
+        return apply(y)
+    return torch.cat([apply(y[:, i:i + width].contiguous())
+                      for i in range(0, y.shape[1], width)], dim=1)
+
+
 class DiaOperator(object):
     """``(vals, diag, y) -> (K + diag) y`` for one band structure applied
     many times: ``offsets`` are checked once here, and a call checks only
     what can change between calls (device, dtype, contiguity and shapes, in
     one expression) before it launches the kernel (CUDA tensors) or runs
-    the plain version (CPU tensors)."""
+    the plain version (CPU tensors). A block of more columns than the
+    streaming plan takes is launched in blocks of :func:`stream_width`
+    columns: the device-memory kernel that would take it whole is about
+    5x slower in ``sharded_predict``'s CG on bench_dia's band (H100)."""
 
     def __init__(self, offsets, n):
         self.offsets = np.asarray(offsets, dtype=np.int64).ravel()
         self.d_min, self.D = band_range(self.offsets)
         self.n = int(n)
+
+    def _width(self, r, dtype):
+        """:func:`stream_width` for this band, once per ``(r, dtype)``."""
+        cache = self.__dict__.setdefault("_widths", {})
+        if (r, dtype) not in cache:
+            cache[r, dtype] = stream_width(self.n, self.D, r, dtype)
+        return cache[r, dtype]
 
     def __call__(self, vals, diag, y):
         if y.device.type == "cpu":
@@ -409,7 +451,10 @@ class DiaOperator(object):
                 "DiaOperator for n=%d, D=%d got vals %s, diag %s, y %s"
                 % (self.n, self.D, tuple(vals.shape), tuple(diag.shape),
                    tuple(y.shape)))
-        return _launch(vals, diag, y, self.d_min, self.D)
+        r = 1 if y.ndim == 1 else y.shape[1]
+        return split_columns(
+            lambda part: _launch(vals, diag, part, self.d_min, self.D), y,
+            self._width(r, y.dtype))
 
 
 def dia_matvec(vals, offsets, diag, y):

@@ -18,41 +18,53 @@ import numpy as np
 import torch
 
 from . import _random
+from ._chains import LocalChains
 
 __all__ = ["stretch_move_half", "ensemble_step", "run_ensemble",
            "EnsembleSampler"]
 
 
-def stretch_move_half(gen, active, active_logp, other, log_prob_fn, a=2.0):
+def stretch_move_half(gen, active, active_logp, other, log_prob_fn, a=2.0,
+                      chains=None):
     """One stretch-move update of ``active`` walkers ``(k, ndim)`` against
     the complementary ensemble ``other`` ``(m, ndim)``, drawing from the
     ``torch.Generator`` ``gen``; ``log_prob_fn`` is batched (``(k, ndim)
-    -> (k,)``). Returns the updated ``(walkers, logp, accepted)``."""
+    -> (k,)``). Returns the updated ``(walkers, logp, accepted)``.
+
+    Under a sharded reducer ``chains`` both halves are this shard's rows:
+    the draws are made for the whole half and each shard keeps its rows,
+    and the partners come from the other half of every shard."""
+    chains = chains or LocalChains()
     k, ndim = active.shape
+    k_all = chains.total(k)
+    other = chains.gather(other)
     like = {"dtype": active.dtype, "device": active.device}
     # z ~ g(z) \propto 1/sqrt(z) on [1/a, a]
-    u = torch.rand(k, generator=gen, **like)
+    u = chains.rows(torch.rand(k_all, generator=gen, **like))
     z = ((a - 1.0) * u + 1.0) ** 2 / a
-    idx = torch.randint(0, other.shape[0], (k,), generator=gen,
-                        device=active.device)
+    idx = chains.rows(torch.randint(0, other.shape[0], (k_all,),
+                                    generator=gen, device=active.device))
     partners = other[idx]
     proposal = partners + z[:, None] * (active - partners)
     new_logp = log_prob_fn(proposal)
     log_ratio = (ndim - 1.0) * torch.log(z) + new_logp - active_logp
-    accept = torch.log(torch.rand(k, generator=gen, **like)) < log_ratio
+    accept = torch.log(chains.rows(
+        torch.rand(k_all, generator=gen, **like))) < log_ratio
     walkers = torch.where(accept[:, None], proposal, active)
     logp = torch.where(accept, new_logp, active_logp)
     return walkers, logp, accept
 
 
-def _step_halves(gen, halves, logps, log_prob_fn, a=2.0):
+def _step_halves(gen, halves, logps, log_prob_fn, a=2.0, chains=None):
     """Red/black sweep on the two halves of the ensemble."""
+    chains = chains or LocalChains()
     (first, second), (lp1, lp2) = halves, logps
     first, lp1, acc1 = stretch_move_half(gen, first, lp1, second,
-                                         log_prob_fn, a)
+                                         log_prob_fn, a, chains)
     second, lp2, acc2 = stretch_move_half(gen, second, lp2, first,
-                                          log_prob_fn, a)
-    acc = 0.5 * (acc1.to(lp1.dtype).mean() + acc2.to(lp2.dtype).mean())
+                                          log_prob_fn, a, chains)
+    acc = 0.5 * (chains.mean(acc1.to(lp1.dtype))
+                 + chains.mean(acc2.to(lp2.dtype)))
     return (first, second), (lp1, lp2), acc
 
 
@@ -70,13 +82,18 @@ def ensemble_step(key, walkers, logp, log_prob_fn, a=2.0):
     return torch.cat([first, second]), torch.cat([lp1, lp2]), acc
 
 
-def run_ensemble(key, p0, log_prob_fn, nsteps, thin=1, a=2.0):
+def run_ensemble(key, p0, log_prob_fn, nsteps, thin=1, a=2.0, chains=None):
     """Run ``nsteps`` ensemble sweeps from ``p0`` ``(nw, ndim)`` (a tensor,
     on its device). ``key``: a ``torch.Generator`` or an int seed.
 
     Returns ``(chain, logps, accept)`` with ``chain`` of shape ``(nsteps //
     thin, nw, ndim)``: every ``thin``-th state, its log-probabilities and
     the acceptance fraction of its sweep.
+
+    ``chains`` is the cross-walker reducer (default :class:`LocalChains`);
+    under the sharded one of ``parallel``, ``p0`` is this shard's rows of
+    the first half followed by its rows of the second half, and so are
+    the outputs.
     """
     nkept = int(nsteps) // int(thin)
     seeds = _random.step_seeds(key, nkept * int(thin))
@@ -88,7 +105,8 @@ def run_ensemble(key, p0, log_prob_fn, nsteps, thin=1, a=2.0):
         lps = (logp0[:half], logp0[half:])
         for s, seed in enumerate(seeds):
             gen = _random.step_generator(seed, p0.device)
-            halves, lps, acc = _step_halves(gen, halves, lps, log_prob_fn, a)
+            halves, lps, acc = _step_halves(gen, halves, lps, log_prob_fn, a,
+                                            chains)
             if (s + 1) % thin == 0:
                 chain.append(torch.cat(halves))
                 logps.append(torch.cat(lps))

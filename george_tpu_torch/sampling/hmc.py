@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from . import _random
+from ._chains import LocalChains
 
 __all__ = ["sample_hmc", "sample_nuts", "HMC", "NUTS", "WarmupSchedule"]
 
@@ -147,7 +148,8 @@ _ENDS = ("q", "p", "g", "lp")
 
 
 def nuts_transition(draws, q, logp, grad, value_and_grad, eps, inv_mass,
-                    max_depth, counts, divergence_threshold=1000.0):
+                    max_depth, counts, divergence_threshold=1000.0,
+                    chains=None):
     """Multinomial NUTS transition of every chain (iterative, bounded
     loops).
 
@@ -155,7 +157,11 @@ def nuts_transition(draws, q, logp, grad, value_and_grad, eps, inv_mass,
     2^max_depth) uniform)``: per doubling a direction and a biased-take
     uniform, per leaf a multinomial-take uniform. ``eps``: ``(C,)``.
     Returns ``(q, logp, grad, accept_prob_proxy, depth, diverged)``.
+    ``chains`` (default :class:`LocalChains`) answers the loops' "is any
+    chain still going" across every shard of a sharded run, so that all
+    shards evaluate the same number of leapfrog steps.
     """
+    chains = chains or LocalChains()
     z, U = draws
     dtype = q.dtype
     C, dim = q.shape
@@ -238,7 +244,7 @@ def nuts_transition(draws, q, logp, grad, value_and_grad, eps, inv_mass,
             live = live & ~(st["turning"] | st["diverging"])
             if i < n_leaf - 1:
                 counts["host_reads"] += 1
-                if not bool(live.any()):
+                if not chains.any(live):
                     ended = True
                     break
 
@@ -266,7 +272,7 @@ def nuts_transition(draws, q, logp, grad, value_and_grad, eps, inv_mass,
         if ended or depth + 1 == max_depth:
             break
         counts["host_reads"] += 1
-        if not bool(active.any()):
+        if not chains.any(active):
             break
     accept_stat = traj["sum_acc"] / torch.clamp(traj["n_leap"], min=1.0)
     return (traj["q_prop"], traj["lp_prop"], traj["g_prop"], accept_stat,
@@ -306,7 +312,7 @@ class WarmupSchedule(object):
         self.window_end = window_end
 
 
-def _robust_final_eps(log_eps_avg, clip):
+def _robust_final_eps(log_eps_avg, clip, chains=None):
     """Cross-chain robustified post-warmup step sizes: each chain's
     averaged estimate is capped at ``clip`` times the cross-chain median
     of the finite estimates and floored at ``median / clip**2``; a
@@ -315,15 +321,19 @@ def _robust_final_eps(log_eps_avg, clip):
     size an order of magnitude above its siblings' and then diverge on a
     third of its transitions in the stiff part of a GP posterior; the
     median, not the mean, anchors the clip, since a mean is pulled up by
-    the very chains being clipped.)"""
+    the very chains being clipped.) The median is over the chains of
+    every shard (``chains``, default :class:`LocalChains`)."""
+    chains = chains or LocalChains()
+    local = log_eps_avg
+    log_eps_avg = chains.gather(local)
     finite = torch.isfinite(log_eps_avg)
     n_finite = torch.sum(finite.to(torch.int64))
     le_sorted = torch.sort(torch.where(finite, log_eps_avg, math.inf)).values
     med = le_sorted[torch.clamp(n_finite - 1, min=0) // 2]
     log_clip = math.log(float(clip))
-    capped = torch.clamp(log_eps_avg, min=med - 2.0 * log_clip,
+    capped = torch.clamp(local, min=med - 2.0 * log_clip,
                          max=med + log_clip)
-    return torch.exp(torch.where(finite, capped, med))
+    return torch.exp(torch.where(torch.isfinite(local), capped, med))
 
 
 def _dual_averaging_init(eps0, dtype, nchains=None, device=None):
@@ -353,14 +363,20 @@ def _dual_averaging_update(da, accept_mean, target, gamma=0.05, t0=10.0,
 # Samplers
 # ---------------------------------------------------------------------------
 
-def _make_value_and_grad(log_prob_fn):
-    """All chains' ``(logp (C,), grad (C, dim))`` in one batched call;
-    non-finite values map to ``-inf`` and non-finite gradient entries to
-    0."""
+def _make_value_and_grad(log_prob_fn, chain_batch=None):
+    """All chains' ``(logp (C,), grad (C, dim))`` in one batched call (in
+    calls of at most ``chain_batch`` chains, when given); non-finite values
+    map to ``-inf`` and non-finite gradient entries to 0."""
     gv = torch.func.vmap(torch.func.grad_and_value(log_prob_fn))
 
     def value_and_grad(q):
-        g, v = gv(q)
+        if chain_batch is None or q.shape[0] <= chain_batch:
+            g, v = gv(q)
+        else:
+            parts = [gv(q[i:i + chain_batch])
+                     for i in range(0, q.shape[0], chain_batch)]
+            g = torch.cat([p[0] for p in parts])
+            v = torch.cat([p[1] for p in parts])
         v = torch.where(torch.isfinite(v), v, -math.inf)
         g = torch.where(torch.isfinite(g), g, 0.0)
         return v, g
@@ -369,19 +385,21 @@ def _make_value_and_grad(log_prob_fn):
 
 
 def _make_transition(value_and_grad, algorithm, num_leapfrog, max_depth,
-                     counts):
+                     counts, chains):
     """``transition(seed, q, lp, g, eps, inv_mass) -> (q, lp, g, acc,
-    extras)``, drawing the step's randomness from its seed."""
+    extras)``, drawing the step's randomness from its seed. The draws are
+    made for the chains of every shard and each shard keeps its rows, so a
+    chain draws the same numbers however the chains are sharded."""
     def draws(seed, q):
         gen = _random.step_generator(seed, q.device)
-        C, dim = q.shape
+        C, dim = chains.total(q.shape[0]), q.shape[1]
         z = torch.randn((C, dim), generator=gen, dtype=q.dtype,
                         device=q.device)
         width = 2 * max_depth + (1 << max_depth) if algorithm == "nuts" \
             else 1
         u = torch.rand((C, width), generator=gen, dtype=q.dtype,
                        device=q.device)
-        return z, u
+        return chains.rows(z), chains.rows(u)
 
     if algorithm == "nuts":
         def transition(seed, q, lp, g, eps, inv_mass):
@@ -389,7 +407,7 @@ def _make_transition(value_and_grad, algorithm, num_leapfrog, max_depth,
                                    device=q.device)
             q, lp, g, acc, depth, div = nuts_transition(
                 draws(seed, q), q, lp, g, value_and_grad, eps, inv_mass,
-                max_depth, counts)
+                max_depth, counts, chains=chains)
             return q, lp, g, acc, {"depth": depth, "diverging": div}
     else:
         def transition(seed, q, lp, g, eps, inv_mass):
@@ -404,9 +422,10 @@ def _make_transition(value_and_grad, algorithm, num_leapfrog, max_depth,
 
 
 def _warmup_chunk(seeds, carry, in_slow, window_end, transition,
-                  target_accept):
+                  target_accept, chains):
     """A run of warmup iterations; the adaptation state threads through
-    ``carry`` so warmup can be split into arbitrary segments."""
+    ``carry`` so warmup can be split into arbitrary segments. The pooled
+    statistics reduce over the chains of every shard (``chains``)."""
     q, lp, g, da, inv_mass, welford = carry
     dense = isinstance(inv_mass, dict)
     accs = []
@@ -420,16 +439,17 @@ def _warmup_chunk(seeds, carry, in_slow, window_end, transition,
         if slow:
             # pooled cross-chain Welford, the within-batch spread too
             cnt, mean, m2 = welford
-            batch_mean = torch.mean(q, dim=0)
+            batch_mean = chains.mean(q)
             delta = batch_mean - mean
             cnt = cnt + 1.0
             mean_new = mean + delta / cnt
             dev = q - batch_mean[None, :]
             if dense:
-                m2 = (m2 + dev.mT @ dev / q.shape[0]
+                m2 = (m2 + chains.sum(dev.mT @ dev)
+                      / chains.total(q.shape[0])
                       + torch.outer(delta, batch_mean - mean_new))
             else:
-                m2 = (m2 + torch.mean(dev ** 2, dim=0)
+                m2 = (m2 + chains.mean(dev ** 2)
                       + delta * (batch_mean - mean_new))
             welford = (cnt, mean_new, m2)
 
@@ -488,20 +508,35 @@ def _as_chains(p0, device):
 def _sample(key, p0, log_prob_fn, num_warmup, num_samples,
             algorithm="nuts", num_leapfrog=32, max_depth=10,
             target_accept=0.8, segment_size=None, step_size_clip=2.0,
-            dense_mass=False):
+            dense_mass=False, chains=None, _chain_batch=None):
     """Warmup + sampling loop. ``p0``: ``(chains, dim)`` tensor.
 
     A finite ``segment_size`` splits warmup and sampling into runs of at
     most that many steps with the adaptation state threaded between them
     (for periodic checkpointing of long runs); the draws do not change.
+
+    ``chains`` is the cross-chain reducer (default :class:`LocalChains`);
+    ``parallel`` passes the one of a chain-sharded run, where ``p0`` holds
+    this shard's chains and every output is this shard's.
+
+    ``_chain_batch`` is for tests only: it evaluates the chains in calls
+    of at most that many. A chain's values round as the batch it is
+    evaluated in does (the libraries' reductions and batched
+    factorizations pick their schedule by batch size), and the warmup's
+    adaptation amplifies such 1-ulp differences into different draws, so a
+    chain-sharded run equals, to rounding, only the unsharded run with
+    ``_chain_batch`` equal to the shard's chain count: the reference that
+    the sharded samplers are held to. The public samplers never set it.
     """
+    chains = chains or LocalChains()
     nchains, dim = p0.shape
     dtype, device = p0.dtype, p0.device
     counts = {"leapfrog_evals": 0, "host_reads": 0}
     with torch.no_grad():
-        value_and_grad = _make_value_and_grad(log_prob_fn)
+        value_and_grad = _make_value_and_grad(log_prob_fn, _chain_batch)
         transition = _make_transition(value_and_grad, algorithm,
-                                      num_leapfrog, max_depth, counts)
+                                      num_leapfrog, max_depth, counts,
+                                      chains)
         lp0, g0 = value_and_grad(p0)
 
         sched = WarmupSchedule(num_warmup)
@@ -526,12 +561,12 @@ def _sample(key, p0, log_prob_fn, num_warmup, num_samples,
         for (a, b) in _segments(num_warmup, segment_size):
             carry, acc = _warmup_chunk(
                 seeds[a:b], carry, sched.in_slow[a:b],
-                sched.window_end[a:b], transition, target_accept)
+                sched.window_end[a:b], transition, target_accept, chains)
             warm_accs += acc
         q, lp, g, da, inv_mass, _ = carry
-        if step_size_clip is not None and nchains > 1:
+        if step_size_clip is not None and chains.total(nchains) > 1:
             eps_final = _robust_final_eps(da["log_eps_avg"],
-                                          float(step_size_clip))
+                                          float(step_size_clip), chains)
         else:
             eps_final = torch.exp(da["log_eps_avg"])
 

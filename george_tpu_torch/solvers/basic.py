@@ -7,7 +7,7 @@ import numpy as np
 import torch
 
 from ..diagnostics import timer
-from .linalg import as_points, cholesky_factor, chol_solve
+from .linalg import as_points, assemble_dense, cholesky_factor, chol_solve
 
 __all__ = ["BasicSolver"]
 
@@ -92,6 +92,20 @@ class BasicSolver(object):
                 (theta,), (tangent,),
             )
         return (K @ y).detach().cpu().numpy()
+
+    def get_full(self, i=0):
+        """The full factorized matrix ``K + diag`` (``i == 0``) or the
+        dense ``dK/dtheta_{i-1}`` over the full parameter vector, as
+        numpy."""
+        theta = self._theta()
+        with torch.no_grad():
+            if i == 0:
+                K = assemble_dense(self.kernel.pair_fn, theta, self._x,
+                                   self._x) + torch.diag(self._yerr2)
+                return K.cpu().numpy().astype(np.float64)
+        return self.kernel.get_gradient(
+            self._x.cpu().numpy().astype(np.float64), include_frozen=True,
+            device=self.device)[:, :, i - 1]
 
     def get_inverse(self):
         n = self._L.shape[0]

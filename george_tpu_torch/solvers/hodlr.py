@@ -51,6 +51,7 @@ import torch
 from ..diagnostics import timer
 from ..neighbors import knn_indices, morton_sort_samples
 from ..ops.chol import cholesky as _batched_cholesky
+from ..parallel.collectives import broadcast, replicated, row_shard
 from .linalg import as_points
 
 __all__ = ["HODLRSolver", "HODLRStructure", "build_structure",
@@ -89,6 +90,7 @@ class HODLRStructure(object):
     def __init__(self, n, min_size=64, rank=32, seed=42, x_sorted=None,
                  nns=None, ridge_floor=None, pivots=None):
         self.n = int(n)
+        self.shard = None
         self.seed = int(seed)
         # absolute floor for the interpolation ridge (the ``tol_abs``
         # accuracy knob); None keeps the pure machine-eps floor
@@ -176,6 +178,7 @@ class HODLRStructure(object):
         L = self.L
         if L == 0:
             self.flat = None
+            self._build_local()
             return
         c = self.rank
         rp_all = np.concatenate([lv["row_piv"] for lv in self.levels])
@@ -207,7 +210,61 @@ class HODLRStructure(object):
             "pair_of_row": np.concatenate(pairC),
             "pair_offset": [int(v) for v in pair_offset],
             "row_offset": [int(v) for v in row_offset],
+            # the pivots each row's skeleton entries are taken at, per
+            # pair: its J (right block) for a left row, its I for a right
+            # row
+            "piv_tab": np.stack([cp_all, rp_all], axis=1).reshape(-1, c),
         }
+        self._build_local()
+
+    def set_shard(self, shard):
+        """Split the padded rows over the ranks of ``shard`` (a
+        ``parallel.collectives.RowShard``; ``None``: one process holds
+        them all). Each rank holds a contiguous block of whole leaves, so
+        the leaf work and every level whose sibling pairs tile the ranks
+        are local; a coarser level's pair spans ranks, and its per-pair
+        sums are reduced over them (:func:`_half_dots`)."""
+        if shard is not None and (self.n_pad // self.m) % shard.world:
+            raise ValueError(
+                "%d leaves do not split evenly over %d ranks"
+                % (self.n_pad // self.m, shard.world))
+        self.shard = shard
+        self._build_local()
+
+    def _build_local(self):
+        """This rank's rows (``row0``, ``nloc``) and, per level, the view
+        of them as ``(np, nh, sl)`` blocks: ``np`` sibling pairs from pair
+        ``p0``, ``nh`` halves from half ``h0`` (0 = left), ``sl`` rows
+        per half. ``whole`` levels hold both halves of their pairs; the
+        others hold part of one half of one pair."""
+        world = 1 if self.shard is None else self.shard.world
+        r = 0 if self.shard is None else self.shard.rank
+        self.nloc = self.n_pad // world
+        self.row0 = r * self.nloc
+        self.views = []
+        pids = []
+        for li, lev in enumerate(self.levels):
+            s, p = lev["s"], lev["p"]
+            if p % world == 0:
+                v = {"p0": r * (p // world), "np": p // world, "h0": 0,
+                     "nh": 2, "sl": s, "whole": True}
+            else:
+                v = {"p0": self.row0 // (2 * s), "np": 1,
+                     "h0": (self.row0 // s) % 2, "nh": 1, "sl": self.nloc,
+                     "whole": False}
+            self.views.append(v)
+            if self.flat is not None:
+                pair = self.flat["pair_offset"][li] + v["p0"] + np.arange(
+                    v["np"], dtype=np.int64)
+                half = v["h0"] + np.arange(v["nh"], dtype=np.int64)
+                pid = 2 * pair[:, None] + half[None, :]
+                pids.append(np.repeat(pid.ravel(), v["sl"]))
+        if self.flat is not None:
+            self.flat["pid_loc"] = np.concatenate(pids)
+            self.flat["rows_loc"] = np.tile(
+                np.arange(self.row0, self.row0 + self.nloc, dtype=np.int64),
+                self.L)
+        self._device_index = {}
 
     def index(self, name, device):
         """``flat[name]`` as a long tensor on ``device``, copied there once
@@ -358,7 +415,7 @@ def ridge_gram(M, ridge_floor=None):
 
     One half of the project's CUR design invariant: the interpolant must
     be the ridge pseudo-inverse of ``M`` solved against the PROJECTED
-    right-hand side ``M^T R`` (see :func:`_all_lowrank_t`). ``lam`` scales
+    right-hand side ``M^T R`` (see :func:`_lowrank_rows_t`). ``lam`` scales
     with ``trace(G)/c`` (relative eps ridge) plus an absolute floor —
     ``ridge_floor`` carries the ``tol_abs`` semantics (singular directions
     below it are damped; G holds squared singular values, hence the
@@ -378,19 +435,38 @@ def ridge_gram(M, ridge_floor=None):
     return G + lam[..., None] * torch.eye(c, dtype=M.dtype, device=M.device)
 
 
-def _all_lowrank_t(pair_fn, theta, xpad, valid, struct):
-    """Skeleton (CUR) factors for EVERY level's sibling couplings, with the
-    kernel-entry assembly and the interpolation solves batched over all
-    levels at once.
+def _enter(struct, t):
+    """A replicated tensor as it enters this rank's row-local work (see
+    ``parallel.collectives.replicated``); itself when unsharded."""
+    return t if struct.shard is None else replicated(t, struct.shard.group)
 
-    Per pair, ``A12 ~= C @ Q^T``: ``C = K[left, J]`` sampled columns and
-    ``Q = K[I, right]^T M G^{-1}`` the ridge-regularized interpolant. The
-    ridge acts as a smooth truncated pseudo-inverse (couplings are often
-    numerically rank-deficient; a QR triangular solve would amplify the
-    null directions) and its absolute floor keeps exactly-zero couplings
-    (fully-padded siblings) at 0 instead of NaN.
 
-    Returns ``[(Ct, Qt), ...]`` per level, each transposed ``(c, p, s)``.
+def _rows(struct, t):
+    """This rank's rows of a padded-row array (``(n_pad, ...)``)."""
+    if struct.shard is None:
+        return t
+    return t[struct.row0:struct.row0 + struct.nloc]
+
+
+def _rowsum(struct, x):
+    """Sums over the row axis, reduced over the ranks holding its rows."""
+    return x if struct.shard is None else struct.shard.sum(x)
+
+
+def _lowrank_rows_t(pair_fn, theta, xpad, valid, struct):
+    """Skeleton (CUR) factors of EVERY level's sibling couplings in the
+    row layout: ``[Z_l, ...]``, each ``(c, nloc)`` over this rank's rows,
+    holding ``C = K[left, J]`` (sampled kernel columns) on each pair's
+    left rows and the ridge-regularized interpolant ``Q = K[I, right]^T M
+    G^{-1}`` on its right rows, so ``A12 ~= C Q^T``. The kernel entries of
+    all levels are one batched evaluation and the interpolation solves
+    one batched solve per level.
+
+    The ridge acts as a smooth truncated pseudo-inverse (couplings are
+    often numerically rank-deficient; a QR triangular solve would amplify
+    the null directions) and its absolute floor keeps exactly-zero
+    couplings (fully-padded siblings) at 0 instead of NaN. ``xpad`` and
+    ``valid`` hold every padded row (the pivots may lie on any rank's).
     """
     flat = struct.flat
     if flat is None:
@@ -399,39 +475,50 @@ def _all_lowrank_t(pair_fn, theta, xpad, valid, struct):
     dev = xpad.device
     rp = struct.index("rp_all", dev)
     cp = struct.index("cp_all", dev)
-    pid = struct.index("pair_of_row", dev)
     xI, vI = xpad[rp], valid[rp]                # (P, c, d), (P, c)
     xJ, vJ = xpad[cp], valid[cp]
     M = _block_matrix(pair_fn, theta, xI, vI, xJ, vJ)       # (P, c, c)
     G = ridge_gram(M, struct.ridge_floor)
 
-    def rows_eval(rows_name, xP, vP):
-        # E[j, t] = k(x[row t], x[pivot j of row t's pair]) -> (c, T)
-        rows = struct.index(rows_name, dev)
-        xa, va = xpad[rows], valid[rows]        # (T, d), (T,)
-        xb, vb = xP[pid], vP[pid]               # (T, c, d), (T, c)
-        E = pair_fn(theta, xa[None, :, :], xb.transpose(0, 1))
-        return torch.where(va[None, :] & vb.T, E, 0.0)
-
-    C_flat = rows_eval("rowsC", xJ, vJ)         # K[left, J] columns
-    # kernel symmetry: K[I, right]^T rows are K(x_right_row, x_I)
-    Rt_flat = rows_eval("rowsR", xI, vI)
+    # E[j, t] = k(x[row t], x[pivot j of row t's pair and half]) -> (c, T);
+    # by kernel symmetry a right row's K[I, right]^T entries are
+    # K(x_right_row, x_I)
+    rows = struct.index("rows_loc", dev)
+    tab = struct.index("piv_tab", dev)
+    pid = struct.index("pid_loc", dev)
+    xa, va = xpad[rows], valid[rows]            # (T, d), (T,)
+    xb, vb = xpad[tab][pid], valid[tab][pid]    # (T, c, d), (T, c)
+    E = pair_fn(theta, xa[None, :, :], xb.transpose(0, 1))
+    E = torch.where(va[None, :] & vb.T, E, 0.0)
 
     out = []
-    ro, po = flat["row_offset"], flat["pair_offset"]
-    for li, lev in enumerate(struct.levels):
-        s, p = lev["s"], lev["p"]
-        Ct = C_flat[:, ro[li]:ro[li + 1]].reshape(c, p, s)
-        Rt = Rt_flat[:, ro[li]:ro[li + 1]].reshape(c, p, s)
-        Ml = M[po[li]:po[li + 1]]
-        Gl = G[po[li]:po[li + 1]]
-        # Solve with the PROJECTED right-hand side M^T R (which lies in
-        # range(M)): precomputing G^{-1} M^T and multiplying by R later is
-        # mathematically identical but numerically injects ~eps/lam
-        # null-space noise (design invariant).
-        rhs = torch.einsum("pkc,kps->pcs", Ml, Rt)
-        Qsol = torch.linalg.solve(Gl, rhs)                  # (p, c, s)
-        out.append((Ct, Qsol.transpose(0, 1)))              # (c, p, s)
+    po, nloc = flat["pair_offset"], struct.nloc
+    for li, v in enumerate(struct.views):
+        Zb = E[:, li * nloc:(li + 1) * nloc].reshape(c, v["np"], v["nh"],
+                                                     v["sl"])
+        halves = [Zb[:, :, h] for h in range(v["nh"])]   # (c, np, sl)
+        if v["h0"] + v["nh"] == 2:       # right rows: interpolate
+            a = po[li] + v["p0"]
+            Ml, Gl = M[a:a + v["np"]], G[a:a + v["np"]]
+            # Solve with the PROJECTED right-hand side M^T R (which lies
+            # in range(M)): precomputing G^{-1} M^T and multiplying by R
+            # later is mathematically identical but numerically injects
+            # ~eps/lam null-space noise (design invariant).
+            rhs = torch.einsum("pkc,kps->pcs", Ml, halves[-1])
+            halves[-1] = torch.linalg.solve(Gl, rhs).transpose(0, 1)
+        out.append(torch.stack(halves, dim=2).reshape(c, nloc))
+    return out
+
+
+def _all_lowrank_t(pair_fn, theta, xpad, valid, struct):
+    """The skeleton factors of :func:`_lowrank_rows_t` of an unsharded
+    structure as ``[(Ct, Qt), ...]`` per level, each transposed ``(c, p,
+    s)``."""
+    out = []
+    for lev, Z in zip(struct.levels,
+                      _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)):
+        Zb = Z.reshape(lev["c"], lev["p"], 2, lev["s"])
+        out.append((Zb[:, :, 0], Zb[:, :, 1]))
     return out
 
 
@@ -464,22 +551,46 @@ def _leaf_solve_t(Lleaf, Xt):
     return z2.transpose(0, 1).reshape(k, B * m)
 
 
-def _factor_apply_inv_t(Zt, Tt, core_inv, p, s, c, Xt):
+def _half_dots(struct, li, Ut, Xt):
+    """Per sibling pair and half of level ``li``, the sums over the half's
+    rows of ``U[c, row] X[k, row]``: ``(p', 2, c, k)`` for transposed
+    ``Ut (c, nloc)`` and ``Xt (k, nloc)``. A level whose pairs this rank
+    holds whole gives its own ``p' = np`` pairs; a coarser one gives all
+    ``p`` pairs, replicated, from every rank's partial sums."""
+    v = struct.views[li]
+    c, k = Ut.shape[0], Xt.shape[0]
+    shape = (v["np"], v["nh"], v["sl"])
+    D = torch.einsum("cphs,kphs->phck", Ut.reshape((c,) + shape),
+                     Xt.reshape((k,) + shape))
+    if v["whole"]:
+        return D
+    p = struct.levels[li]["p"]
+    D = torch.nn.functional.pad(
+        D, (0, 0, 0, 0, v["h0"], 1 - v["h0"], v["p0"], p - 1 - v["p0"]))
+    return struct.shard.sum(D)
+
+
+def _half_apply(struct, li, Tt, Y):
+    """The transpose of :func:`_half_dots`: each row of pair ``p``, half
+    ``h`` gets ``sum_c T[c, row] Y[p, h, c, k]``; returns ``(k, nloc)``."""
+    v = struct.views[li]
+    if not v["whole"]:
+        Y = _enter(struct, Y)[v["p0"]:v["p0"] + 1, v["h0"]:v["h0"] + 1]
+    c = Tt.shape[0]
+    out = torch.einsum("cphs,phck->kphs",
+                       Tt.reshape(c, v["np"], v["nh"], v["sl"]), Y)
+    return out.reshape(Y.shape[-1], struct.nloc)
+
+
+def _factor_apply_inv_t(Zt, Tt, core_inv, struct, li, Xt):
     """Apply ``F_l^{-1} = I - W (I + Z^T W)^{-1} Z^T`` to transposed
-    ``Xt (k, n_pad)`` (SMW, batched over the level's sibling pairs)."""
-    k = Xt.shape[0]
-    Xb = Xt.reshape(k, p, 2, s)
-    Zb = Zt.reshape(c, p, 2, s)
-    Tb = Tt.reshape(c, p, 2, s)
-    top = torch.einsum("cps,kps->pck", Zb[:, :, 1], Xb[:, :, 1])
-    bot = torch.einsum("cps,kps->pck", Zb[:, :, 0], Xb[:, :, 0])
-    y = torch.einsum(
-        "pcd,pdk->pck", core_inv, torch.cat([top, bot], dim=1)
-    )
-    dx_l = torch.einsum("cps,pck->kps", Tb[:, :, 0], y[:, :c])
-    dx_r = torch.einsum("cps,pck->kps", Tb[:, :, 1], y[:, c:])
-    out = Xb - torch.stack([dx_l, dx_r], dim=2)
-    return out.reshape(Xt.shape)
+    ``Xt (k, nloc)`` (SMW, batched over the level's sibling pairs)."""
+    c = struct.levels[li]["c"]
+    D = _half_dots(struct, li, Zt, Xt)         # [P^T x_left, Q^T x_right]
+    y = torch.einsum("pcd,pdk->pck", core_inv,
+                     torch.cat([D[:, 1], D[:, 0]], dim=1))
+    return Xt - _half_apply(struct, li, Tt,
+                            torch.stack([y[:, :c], y[:, c:]], dim=1))
 
 
 def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
@@ -489,26 +600,29 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
     "levels": [(Zt, Tt, core_inv), ...]}``: ``Zt`` the raw and ``Tt`` the
     finer-inverse-applied skeleton factors, transposed ``(c_l, n_pad)``,
     and ``core_inv`` the inverted SMW cores ``(p_l, 2c_l, 2c_l)``.
+
+    On a sharded structure (:meth:`HODLRStructure.set_shard`) the factors
+    are this rank's: its leaves, its ``(c_l, nloc)`` rows of each level
+    factor, and the cores of the pairs it holds whole (all ``p_l`` cores,
+    replicated, of a level whose pairs span ranks); ``logdet`` is the
+    whole operator's on every rank.
     """
-    n_pad, m, L = struct.n_pad, struct.m, struct.L
-    B = n_pad // m
+    m, L = struct.m, struct.L
+    B = struct.nloc // m
+    theta = _enter(struct, theta)
 
     # --- leaf boxes: batched assemble + Cholesky --------------------------
-    xb = xpad.reshape(B, m, -1)
-    vb = valid.reshape(B, m)
-    Lleaf = _leaf_cholesky(pair_fn, theta, xb, vb, diag_pad.reshape(B, m))
+    xb = _rows(struct, xpad).reshape(B, m, -1)
+    vb = _rows(struct, valid).reshape(B, m)
+    db = _rows(struct, _enter(struct, diag_pad)).reshape(B, m)
+    Lleaf = _leaf_cholesky(pair_fn, theta, xb, vb, db)
     logdet = 2.0 * torch.sum(
         torch.log(torch.diagonal(Lleaf, dim1=-2, dim2=-1))
     )
+    logdet_shared = None    # the cores of levels whose pairs span ranks
 
     # --- raw skeleton factors, all levels assembled in one batch ----------
-    Zs = [
-        torch.stack([Ct, Qt], dim=2).reshape(lev["c"], n_pad)
-        for lev, (Ct, Qt) in zip(
-            struct.levels, _all_lowrank_t(pair_fn, theta, xpad, valid,
-                                          struct)
-        )
-    ]
+    Zs = _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)
 
     # --- upward sweep: factor each level, update coarser factors ----------
     # each level's inverse hits ALL coarser levels' factors as one
@@ -520,14 +634,11 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
         T = []
     levels_out = [None] * L
     for li in range(L - 1, -1, -1):   # li = level index (0 = root split)
-        lev = struct.levels[li]
-        s, p, c = lev["s"], lev["p"], lev["c"]
-        Zb = Zs[li].reshape(c, p, 2, s)
-        Tb = T[li].reshape(c, p, 2, s)
-        P, Q = Zb[:, :, 0], Zb[:, :, 1]                  # (c, p, s)
-        Pt, Qt_ = Tb[:, :, 0], Tb[:, :, 1]
-        upper = torch.einsum("cps,dps->pcd", Q, Qt_)     # Q^T Qtilde
-        lower = torch.einsum("cps,dps->pcd", P, Pt)      # P^T Ptilde
+        c = struct.levels[li]["c"]
+        # [P^T Ptilde, Q^T Qtilde] per pair
+        D = _half_dots(struct, li, Zs[li], T[li])
+        lower, upper = D[:, 0], D[:, 1]
+        p = D.shape[0]
         eye = torch.eye(c, dtype=upper.dtype, device=upper.device).expand(
             p, c, c)
         core = torch.cat(
@@ -536,14 +647,21 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
             dim=-2,
         )                                                # (p, 2c, 2c)
         core_inv, ld = _core_inv_slogdet(core)
-        logdet = logdet + torch.sum(ld)
+        if struct.views[li]["whole"]:
+            logdet = logdet + torch.sum(ld)
+        else:
+            logdet_shared = torch.sum(ld) + (
+                0.0 if logdet_shared is None else logdet_shared)
         levels_out[li] = (Zs[li], T[li], core_inv)
         if li > 0:
-            X = _factor_apply_inv_t(Zs[li], T[li], core_inv, p, s, c,
+            X = _factor_apply_inv_t(Zs[li], T[li], core_inv, struct, li,
                                     torch.cat(T[:li], dim=0))
             T[:li] = torch.split(X, [T[j].shape[0] for j in range(li)],
                                  dim=0)
 
+    logdet = _rowsum(struct, logdet)
+    if logdet_shared is not None:
+        logdet = logdet + logdet_shared
     return {"Lleaf": Lleaf, "levels": levels_out}, logdet
 
 
@@ -552,10 +670,8 @@ def _solve_t(factors, struct, Xt):
     ``D^{-1}`` then ``F_L^{-1} ... F_1^{-1}`` (finest first)."""
     Xt = _leaf_solve_t(factors["Lleaf"], Xt)
     for li in range(struct.L - 1, -1, -1):
-        lev = struct.levels[li]
         Zt, Tt, core_inv = factors["levels"][li]
-        Xt = _factor_apply_inv_t(Zt, Tt, core_inv, lev["p"], lev["s"],
-                                 lev["c"], Xt)
+        Xt = _factor_apply_inv_t(Zt, Tt, core_inv, struct, li, Xt)
     return Xt
 
 
@@ -569,7 +685,7 @@ def _from_t(Yt, squeeze):
 
 def hodlr_solve(factors, struct, X):
     """``K^{-1} X`` through the factor cascade. ``X``: ``(n_pad,)`` or
-    ``(n_pad, k)``."""
+    ``(n_pad, k)`` (this rank's ``nloc`` rows on a sharded structure)."""
     Xt, squeeze = _as_t(X)
     return _from_t(_solve_t(factors, struct, Xt), squeeze)
 
@@ -586,23 +702,16 @@ def _matvec_factors_t(factors, struct, Xt):
     t1 = torch.einsum("bkm,bmn->bkn", Xb, Lleaf)
     Yb = torch.einsum("bkn,bjn->bkj", t1, Lleaf)
     Yt = Yb.transpose(0, 1).reshape(k, B * m)
-    for li, lev in enumerate(struct.levels):
-        s, p, c = lev["s"], lev["p"], lev["c"]
-        Zb = factors["levels"][li][0].reshape(c, p, 2, s)
-        Yt = Yt + _coupling_t(Zb[:, :, 0], Zb[:, :, 1], Xt, p, s)
+    for li in range(struct.L):
+        Yt = Yt + _coupling_t(factors["levels"][li][0], Xt, struct, li)
     return Yt
 
 
-def _coupling_t(Ct, Qt, Xt, p, s):
-    """Off-diagonal coupling of one level on transposed ``Xt``: left rows
-    get ``C (Q^T x_right)``, right rows ``Q (C^T x_left)``."""
-    k = Xt.shape[0]
-    Xb = Xt.reshape(k, p, 2, s)
-    qx = torch.einsum("cps,kps->pck", Qt, Xb[:, :, 1])
-    px = torch.einsum("cps,kps->pck", Ct, Xb[:, :, 0])
-    add_l = torch.einsum("cps,pck->kps", Ct, qx)
-    add_r = torch.einsum("cps,pck->kps", Qt, px)
-    return torch.stack([add_l, add_r], dim=2).reshape(Xt.shape)
+def _coupling_t(Zt, Xt, struct, li):
+    """Off-diagonal coupling of level ``li`` on transposed ``Xt``: left
+    rows get ``C (Q^T x_right)``, right rows ``Q (C^T x_left)``."""
+    D = _half_dots(struct, li, Zt, Xt)          # [C^T x_left, Q^T x_right]
+    return _half_apply(struct, li, Zt, D.flip(1))
 
 
 def hodlr_matvec_factors(factors, struct, X):
@@ -618,22 +727,23 @@ def _matvec_t(pair_fn, theta, xpad, valid, diag_pad, struct, Xt,
     (k, n_pad)``: batched leaf-block products plus per-level low-rank
     couplings, kernel entries assembled afresh at ``theta`` (so
     ``torch.func.jvp`` in ``theta`` gives ``dK_bar/dtheta`` products)."""
-    n_pad, m = struct.n_pad, struct.m
-    B = n_pad // m
+    m = struct.m
+    B = struct.nloc // m
     k = Xt.shape[0]
-    xb = xpad.reshape(B, m, -1)
-    vb = valid.reshape(B, m)
+    theta = _enter(struct, theta)
+    xb = _rows(struct, xpad).reshape(B, m, -1)
+    vb = _rows(struct, valid).reshape(B, m)
     Kc = _block_matrix(pair_fn, theta, xb, vb, xb, vb)
     if include_diag:
-        Kc = Kc + torch.diag_embed(diag_pad.reshape(B, m))
+        Kc = Kc + torch.diag_embed(
+            _rows(struct, _enter(struct, diag_pad)).reshape(B, m))
     # X^T K (K symmetric): contract the row index, minor stays long
     Xl = Xt.reshape(k, B, m).transpose(0, 1)             # (B, k, m)
     Yb = torch.einsum("bki,bij->bkj", Xl, Kc)
-    Yt = Yb.transpose(0, 1).reshape(k, n_pad)
-    for lev, (Ct, Qt) in zip(
-        struct.levels, _all_lowrank_t(pair_fn, theta, xpad, valid, struct)
-    ):
-        Yt = Yt + _coupling_t(Ct, Qt, Xt, lev["p"], lev["s"])
+    Yt = Yb.transpose(0, 1).reshape(k, struct.nloc)
+    for li, Zt in enumerate(
+            _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)):
+        Yt = Yt + _coupling_t(Zt, Xt, struct, li)
     return Yt
 
 
@@ -649,19 +759,20 @@ def hodlr_matvec(pair_fn, theta, xpad, valid, diag_pad, struct, X,
     )
 
 
-def _refine(solve, matvec, Xt, steps):
+def _refine(solve, matvec, Xt, steps, rowsum=lambda x: x):
     """Residual-minimizing refinement of ``solve`` against ``matvec``:
     ``z += omega F^{-1} r`` with the per-column ``omega = <r, K d> / <K d,
     K d>`` (GMRES(1) with the cascade as right preconditioner), so
-    ``||r'|| <= ||r||`` even where the cascade's inverse is poor."""
+    ``||r'|| <= ||r||`` even where the cascade's inverse is poor.
+    ``rowsum`` completes the row sums of a sharded layout."""
     Z = solve(Xt)
     R = Xt - matvec(Z)
     tiny = torch.finfo(Xt.dtype).tiny
     for _ in range(steps):
         D = solve(R)
         KD = matvec(D)
-        w = torch.sum(R * KD, dim=1) / torch.clamp_min(
-            torch.sum(KD * KD, dim=1), tiny
+        w = rowsum(torch.sum(R * KD, dim=1)) / torch.clamp_min(
+            rowsum(torch.sum(KD * KD, dim=1)), tiny
         )
         Z = Z + w[:, None] * D
         R = R - w[:, None] * KD
@@ -678,7 +789,7 @@ def hodlr_solve_refined(pair_fn, theta, xpad, valid, diag_pad, struct,
     Z = _refine(
         lambda V: _solve_t(factors, struct, V),
         lambda V: _matvec_factors_t(factors, struct, V),
-        Xt, steps,
+        Xt, steps, lambda x: _rowsum(struct, x),
     )
     return _from_t(Z, squeeze)
 
@@ -727,10 +838,15 @@ def hodlr_loglike_and_grad_hutchinson(
     of the log-determinant from the same residual pass. ``factors_logdet``
     optionally passes a precomputed ``(factors, logdet)`` from
     :func:`hodlr_factor`.
+
+    On a sharded structure ``r_pad`` and ``probes`` hold every padded row
+    (as ``valid`` does); each rank works on its own and the sums are
+    reduced over the ranks.
     """
     n = struct.n if n_real is None else n_real
     dtype = r_pad.dtype
     theta = theta.detach()
+    rowsum = lambda x: _rowsum(struct, x)
     with torch.no_grad():
         if factors_logdet is not None:
             factors, logdet = factors_logdet
@@ -762,7 +878,8 @@ def hodlr_loglike_and_grad_hutchinson(
                 raise ValueError(
                     "probes must have shape (num_probes, %d)" % struct.n_pad
                 )
-        probes = probes * valid[None, :]
+        probes = _rows(struct, (probes * valid[None, :]).T).T
+        r_pad = _rows(struct, r_pad)
         rhs = torch.cat([r_pad[None, :], probes], dim=0)
         if refine_steps:
             # Two fixes from the same residual pass, both assembly-free:
@@ -777,10 +894,11 @@ def hodlr_loglike_and_grad_hutchinson(
             # correction is gated on the measured residual ratio.
             sol0 = solve(rhs)
             R0 = rhs - mvf(sol0)
-            trE = -torch.mean(torch.sum(probes * R0[1:], dim=1))
+            trE = -torch.mean(rowsum(torch.sum(probes * R0[1:], dim=1)))
             rho2 = torch.mean(
-                torch.sum(R0[1:] ** 2, dim=1)
-                / torch.clamp_min(torch.sum(probes ** 2, dim=1), 1.0)
+                rowsum(torch.sum(R0[1:] ** 2, dim=1))
+                / torch.clamp_min(rowsum(torch.sum(probes ** 2, dim=1)),
+                                  1.0)
             )
             sol, R, trE2 = sol0, R0, None
             tiny = torch.finfo(dtype).tiny
@@ -788,11 +906,10 @@ def hodlr_loglike_and_grad_hutchinson(
                 D = solve(R)
                 KD = mvf(D)
                 if trE2 is None:
-                    trE2 = torch.mean(
-                        torch.sum(probes * (R0 - KD)[1:], dim=1)
-                    )
-                w = torch.sum(R * KD, dim=1) / torch.clamp_min(
-                    torch.sum(KD * KD, dim=1), tiny
+                    trE2 = torch.mean(rowsum(
+                        torch.sum(probes * (R0 - KD)[1:], dim=1)))
+                w = rowsum(torch.sum(R * KD, dim=1)) / torch.clamp_min(
+                    rowsum(torch.sum(KD * KD, dim=1)), tiny
                 )
                 sol = sol + w[:, None] * D
                 R = R - w[:, None] * KD
@@ -802,15 +919,16 @@ def hodlr_loglike_and_grad_hutchinson(
         else:
             sol = solve(rhs)
         alpha, Kinv_u = sol[0], sol[1:]
-        quad = torch.dot(r_pad, alpha)
+        quad = rowsum(torch.dot(r_pad, alpha))
         ll = -0.5 * (quad + logdet + n * _LOG_2PI)
         av = torch.cat([alpha[None, :], probes], dim=0)
 
     dK_av_t = dK_products(pair_fn, theta, xpad, valid, diag_pad, struct,
                           av)                       # (T, 1 + P, n_pad)
-    quad_terms = 0.5 * torch.einsum("i,ti->t", alpha, dK_av_t[:, 0, :])
+    quad_terms = 0.5 * rowsum(
+        torch.einsum("i,ti->t", alpha, dK_av_t[:, 0, :]))
     trace_terms = 0.5 * torch.mean(
-        torch.einsum("pi,tpi->tp", Kinv_u, dK_av_t[:, 1:, :]), dim=1
+        rowsum(torch.einsum("pi,tpi->tp", Kinv_u, dK_av_t[:, 1:, :])), dim=1
     )
     return ll, quad_terms - trace_terms
 
@@ -1039,8 +1157,19 @@ class HODLRSolver(object):
     :param device: torch device the factorization lives on (default
         ``"cuda"``; pass ``"cpu"`` explicitly on a host without a card).
     :param dtype: working dtype (default ``torch.float64``).
-
-    Not ported yet (it raises ``NotImplementedError``): ``mesh=``.
+    :param mesh: a one-dimensional ``torch.distributed`` ``DeviceMesh``
+        (``parallel.chain_mesh()``) to split the rows over: every rank of
+        the mesh runs the same calls with the same data, holds a
+        contiguous block of whole leaves (its leaf Cholesky is one launch
+        of its own leaves) and the levels whose sibling pairs tile the
+        ranks; a coarser level's per-pair sums are ``all_reduce``d, and
+        the log-determinant and results are whole on every rank. The
+        likelihood, its exact and Hutchinson gradients, ``log_prob_fn``
+        (under the samplers' ``vmap`` too), solves, matvecs and
+        ``predict`` run sharded; when the leaf count does not split over
+        the ranks it warns and runs unsharded. The symmetric
+        factorization (``sym=True``, ``apply_sqrt``, ``GP.sample``) is not
+        sharded and raises ``NotImplementedError`` under a mesh.
     """
 
     matrix_free = False
@@ -1060,9 +1189,14 @@ class HODLRSolver(object):
                  grad_mode="exact", num_probes=16, mesh=None,
                  pivots="aca", refine_steps="auto", device="cuda",
                  dtype=torch.float64, **kwargs):
-        if mesh is not None:
+        if mesh is not None and not hasattr(mesh, "get_group"):
+            raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                            "(george_tpu_torch.parallel.chain_mesh)")
+        if mesh is not None and sym:
             raise NotImplementedError(
-                "HODLRSolver(mesh=) is not ported to george_tpu_torch yet")
+                "HODLRSolver(sym=True) does not shard over a mesh")
+        self.mesh = mesh
+        self._shard = None
         self.kernel = kernel
         self.min_size = int(min_size)
         if rank is None:
@@ -1171,6 +1305,7 @@ class HODLRSolver(object):
                               self.kernel.parameter_vector, xpad, valid, st)
         diag_pad = np.ones(st.n_pad)
         diag_pad[:n] = yerr2[self._perm]
+        self._shard = self._split_rows(st)
 
         self._struct = st
         self._x = x
@@ -1202,6 +1337,40 @@ class HODLRSolver(object):
         self.log_determinant = float(logdet)
         self.computed = True
         self._factorization_self_check()
+
+    def _split_rows(self, st):
+        """Split ``st``'s rows over the mesh (``None``: unsharded). Every
+        rank adopts rank 0's skeleton pivots, so all ranks factor one
+        structure."""
+        shard = row_shard(self.mesh)
+        if shard is None:
+            return None
+        if (st.n_pad // st.m) % shard.world:
+            warnings.warn(
+                "HODLRSolver: %d leaves do not split evenly over the "
+                "%d-rank mesh; running unsharded. Choose min_size so that "
+                "the leaf count (a power of two) is a multiple of the mesh "
+                "size to distribute." % (st.n_pad // st.m, shard.world),
+                RuntimeWarning)
+            return None
+        if st.L:
+            piv = np.concatenate([np.concatenate([lv["row_piv"],
+                                                  lv["col_piv"]], axis=1)
+                                  for lv in st.levels])
+            piv = broadcast(torch.as_tensor(piv, device=self.device),
+                            shard.group).cpu().numpy()
+            a = 0
+            for lv in st.levels:
+                lv["row_piv"] = piv[a:a + lv["p"], :lv["c"]]
+                lv["col_piv"] = piv[a:a + lv["p"], lv["c"]:]
+                a += lv["p"]
+            st._build_flat()
+        st.set_shard(shard)
+        return shard
+
+    def _gather(self, Z):
+        """Whole rows from this rank's block of them."""
+        return Z if self._shard is None else self._shard.gather(Z)
 
     def _factorization_self_check(self):
         """One-probe residual ``|K_bar (K_bar^{-1} v) - v| / |v|`` against
@@ -1301,14 +1470,14 @@ class HODLRSolver(object):
         theta (around either cascade)."""
         st = self._struct
         with torch.no_grad():
-            Yt = Y.T
+            Yt = _rows(st, Y).T
             Z = self._base_solve_t(self._factors, Yt)
             for _ in range(self._refine_eff):
                 R = Yt - _matvec_t(self.kernel.pair_fn, self._theta,
                                    self._xpad, self._valid, self._diag_pad,
                                    st, Z)
                 Z = Z + self._base_solve_t(self._factors, R)
-            return Z.T
+            return self._gather(Z.T)
 
     # -- pure fused surface -------------------------------------------------
 
@@ -1329,8 +1498,9 @@ class HODLRSolver(object):
             factors, logdet = hodlr_factor(
                 pair, theta_k, xpad, valid, diag_pad, st
             )
+            r_pad = _rows(st, _enter(st, r_pad))
             z = hodlr_solve(factors, st, r_pad)
-            quad = torch.dot(r_pad, z)
+            quad = _rowsum(st, torch.dot(r_pad, z))
             return -0.5 * (quad + logdet + n * _LOG_2PI)
 
         return loglike
@@ -1359,14 +1529,19 @@ class HODLRSolver(object):
         perm = torch.as_tensor(self._perm, device=self.device)
         xpad, valid = self._xpad, self._valid
 
+        def norm(v):
+            if st.shard is None:
+                return torch.linalg.vector_norm(v)
+            return torch.sqrt(_rowsum(st, torch.sum(v * v)))
+
         def residual(theta_k, diag, r):
             diag_pad, r_pad = self._pad_diag_rhs(perm, diag, r)
             factors, _ = hodlr_factor(pair, theta_k, xpad, valid, diag_pad,
                                       st)
+            r_pad = _rows(st, _enter(st, r_pad))
             z = hodlr_solve(factors, st, r_pad)
             kz = hodlr_matvec(pair, theta_k, xpad, valid, diag_pad, st, z)
-            return (torch.linalg.vector_norm(kz - r_pad)
-                    / torch.linalg.vector_norm(r_pad))
+            return norm(kz - r_pad) / norm(r_pad)
 
         return residual
 
@@ -1398,6 +1573,7 @@ class HODLRSolver(object):
         """Compressed matvec ``K_bar y`` (``i == 0``) or
         ``dK_bar/dtheta_{i-1} y`` via ``torch.func.jvp`` through it."""
         Y, squeeze = self._pad_rhs(y)
+        Y = _rows(self._struct, Y)
         theta = self._tensor(self.kernel.parameter_vector)
 
         def mv(th):
@@ -1411,7 +1587,7 @@ class HODLRSolver(object):
             tangent = torch.zeros_like(theta)
             tangent[i - 1] = 1.0
             _, Z = torch.func.jvp(mv, (theta,), (tangent,))
-        return self._unpad(Z, squeeze)
+        return self._unpad(self._gather(Z.detach()), squeeze)
 
     def get_inverse(self):
         return self.apply_inverse(np.eye(self._struct.n))
@@ -1473,6 +1649,10 @@ class HODLRSolver(object):
     def _ensure_sym(self):
         """(Re)build the symmetric factors ``K = W W^T`` lazily, keyed on
         the kernel's current parameter vector."""
+        if self._shard is not None:
+            raise NotImplementedError(
+                "the symmetric HODLR factorization (apply_sqrt, GP.sample, "
+                "the W^{-1} applications) does not shard over a mesh")
         theta = np.array(self.kernel.parameter_vector)
         if self._sym_factors is None or self._sym_theta is None or (
                 not np.array_equal(theta, self._sym_theta)):
@@ -1516,7 +1696,8 @@ class HODLRSolver(object):
         """``W^{-T} y``; the columns of a matrix ``y`` independently."""
         return self._apply_sym_W(y, solve=True, transpose=True)
 
-    # pickling drops the device state; a restored solver needs a compute
+    # pickling drops the device state and the mesh (a process group does
+    # not serialize); a restored solver needs a compute
     def __getstate__(self):
         state = self.__dict__.copy()
         for k in ("_factors", "_xpad", "_valid", "_diag_pad", "_theta",
@@ -1524,6 +1705,8 @@ class HODLRSolver(object):
             state.pop(k, None)
         state["_sym_theta"] = None
         state["computed"] = False
+        state["mesh"] = None
+        state["_shard"] = None
         return state
 
     def __setstate__(self, state):
@@ -1531,3 +1714,5 @@ class HODLRSolver(object):
         self.__dict__.setdefault("_struct", None)
         self.__dict__.setdefault("_factors", None)
         self.__dict__.setdefault("_sym_factors", None)
+        self.__dict__.setdefault("mesh", None)
+        self.__dict__.setdefault("_shard", None)

@@ -17,6 +17,7 @@ import torch
 
 __all__ = [
     "as_points",
+    "assemble_dense",
     "cholesky_factor",
     "chol_solve",
     "chol_logdet",
@@ -40,6 +41,13 @@ def as_points(x):
             % (x.shape,)
         )
     return x
+
+
+def assemble_dense(pair_fn, theta, x1, x2):
+    """Dense covariance matrix ``K[i, j] = pair_fn(theta, x1[i], x2[j])``
+    of point arrays ``(n1, d)`` and ``(n2, d)``, by one broadcast call of
+    the pair function."""
+    return pair_fn(theta, x1[:, None, :], x2[None, :, :])
 
 
 def cholesky_factor(K, diag=None):

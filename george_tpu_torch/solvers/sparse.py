@@ -21,13 +21,19 @@ data the neighborhoods are contiguous and the structure is a band (DIA):
 On a band the default ``direct="auto"`` takes the exact block-tridiagonal
 Cholesky of ``solvers/banded.py`` instead of CG and SLQ.
 
+Under ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) the rows are split
+over the ranks, as the JAX package shards them: the ELL tables (the band
+is not taken) are padded to a multiple of the mesh size and each rank
+holds its block of them, its rows of every vector and of the entry table;
+the coordinates are replicated. Each matvec gathers the vector from all
+ranks and computes its own rows, and the CG, Lanczos and gradient sums
+are reduced over the ranks.
+
 The fused likelihood behind ``GP.log_prob_fn`` and the samplers
 (``SparseSolver.loglike_fn``) is the exact banded one on the direct path;
 on the iterative path it is CG with an implicit adjoint and SLQ with a
 Hutchinson adjoint (``_CgSolve``, ``_SlqLogdet``), through the same apply.
 
-Not ported yet: ``mesh=`` (row sharding), which raises
-``NotImplementedError``.
 """
 
 import numpy as np
@@ -37,6 +43,7 @@ from ..neighbors import (
     knn_matrix_to_csr, normalize_nns, radius_neighbors_csr,
 )
 from ..ops.dia import DiaOperator, dia_matvec
+from ..parallel.collectives import row_shard
 from .banded import (
     band_block_size, band_blocks, banded_cholesky, banded_loglike_fn,
     banded_solve, banded_sqrt_matvec,
@@ -70,11 +77,13 @@ def ell_from_csr(nbr_idx, row_ptr, pad_multiple=8):
     return nbr, mask
 
 
-def ell_values(pair_fn, theta, x, nbr, mask):
+def ell_values(pair_fn, theta, x, nbr, mask, rows=None):
     """Masked kernel-entry table ``vals[i, j] = k(x_i, x_nbr[i, j])``,
     shape ``(n, k_max)``; ``x`` ``(n, d)``, ``nbr`` an integer tensor and
-    ``mask`` a bool tensor of the table's shape."""
-    vals = pair_fn(theta, x[:, None, :], x[nbr])
+    ``mask`` a bool tensor of the table's shape. ``rows`` (default ``x``)
+    are the points of the table's rows when it holds only some of them."""
+    rows = x if rows is None else rows
+    vals = pair_fn(theta, rows[:, None, :], x[nbr])
     return torch.where(mask, vals, 0.0)
 
 
@@ -152,22 +161,32 @@ def dia_apply(vals, offsets, diag, y):
     return dia_matvec(vals, offsets, diag, y)
 
 
-def _lanczos(matvec, V0, num_steps, keep_basis=False):
+def _colnorm(V, rowsum):
+    """Column norms of ``V`` ``(n, k)``; ``rowsum`` completes the sums of
+    a row-sharded ``V`` over the ranks (``None``: ``V`` holds every row)."""
+    if rowsum is None:
+        return torch.linalg.vector_norm(V, dim=0)
+    return torch.sqrt(rowsum(torch.sum(V * V, dim=0)))
+
+
+def _lanczos(matvec, V0, num_steps, keep_basis=False, rowsum=None):
     """Lanczos on the columns of ``V0`` ``(n, k)`` at once (each column its
     own Krylov space; one multi-RHS ``matvec`` per step). The columns must
     have unit norm. Returns the tridiagonals ``(k, m, m)`` and, with
-    ``keep_basis``, the basis ``(m, n, k)``."""
+    ``keep_basis``, the basis ``(m, n, k)``. ``rowsum`` completes the
+    column sums of row-sharded vectors (see :func:`pcg_solve`)."""
+    red = rowsum or (lambda t: t)
     v_prev = torch.zeros_like(V0)
     v = V0
     beta_prev = V0.new_zeros(V0.shape[1])
     alphas, betas, basis = [], [], []
     for _ in range(num_steps):
         w = matvec(v) - beta_prev * v_prev
-        alpha = torch.sum(w * v, dim=0)
+        alpha = red(torch.sum(w * v, dim=0))
         w = w - alpha * v
         # one round of reorthogonalization against v_prev
-        w = w - torch.sum(w * v_prev, dim=0) * v_prev
-        beta = torch.linalg.vector_norm(w, dim=0)
+        w = w - red(torch.sum(w * v_prev, dim=0)) * v_prev
+        beta = _colnorm(w, rowsum)
         if keep_basis:
             basis.append(v)
         alphas.append(alpha)
@@ -180,16 +199,16 @@ def _lanczos(matvec, V0, num_steps, keep_basis=False):
     return T, (torch.stack(basis) if keep_basis else None)
 
 
-def lanczos_fn_matvec(matvec, b, fn, num_steps=40):
+def lanczos_fn_matvec(matvec, b, fn, num_steps=40, rowsum=None):
     """``f(A) b`` for SPD ``A`` by the Lanczos method: ``b`` spans a Krylov
     space ``V_m``, ``A`` restricted to it is the tridiagonal ``T_m``, and
     ``f(A) b ~= ||b|| V_m f(T_m) e1``. ``b``: ``(n,)``, or ``(n, k)`` for
     ``k`` independent vectors transported in one block."""
     squeeze = b.ndim == 1
     B = b[:, None] if squeeze else b
-    beta0 = torch.linalg.vector_norm(B, dim=0)               # (k,)
+    beta0 = _colnorm(B, rowsum)                              # (k,)
     V0 = B / torch.where(beta0 > 0, beta0, 1.0)
-    T, V = _lanczos(matvec, V0, num_steps, keep_basis=True)
+    T, V = _lanczos(matvec, V0, num_steps, keep_basis=True, rowsum=rowsum)
     evals, evecs = torch.linalg.eigh(T)                      # (k, m), (k, m, m)
     coeff = torch.einsum(
         "kij,kj->ki", evecs, fn(torch.clamp_min(evals, 0.0)) * evecs[:, 0, :])
@@ -197,7 +216,8 @@ def lanczos_fn_matvec(matvec, b, fn, num_steps=40):
     return out[:, 0] if squeeze else out
 
 
-def slq_logdet(matvec, probes, num_steps=30, return_std=False):
+def slq_logdet(matvec, probes, num_steps=30, return_std=False, rowsum=None,
+               n=None):
     """Stochastic Lanczos quadrature estimate of ``log det A`` for SPD A.
 
     ``probes`` is the ``(num_probes, n)`` probe matrix (Rademacher, in the
@@ -205,12 +225,14 @@ def slq_logdet(matvec, probes, num_steps=30, return_std=False):
     ``num_steps`` Lanczos steps, Gauss quadrature from the tridiagonals'
     eigendecompositions. With ``return_std=True`` also returns the
     Monte-Carlo standard error (std of the per-probe values /
-    sqrt(num_probes)).
+    sqrt(num_probes)). Row-sharded probes pass ``rowsum`` (see
+    :func:`pcg_solve`) and the whole operator's size ``n``.
     """
     P = probes.mT
-    n, num_probes = P.shape
-    V0 = P / torch.linalg.vector_norm(P, dim=0)
-    T, _ = _lanczos(matvec, V0, num_steps)
+    n = P.shape[0] if n is None else int(n)
+    num_probes = P.shape[1]
+    V0 = P / _colnorm(P, rowsum)
+    T, _ = _lanczos(matvec, V0, num_steps, rowsum=rowsum)
     evals, evecs = torch.linalg.eigh(T)
     evals = torch.clamp_min(evals, torch.finfo(evals.dtype).tiny)
     estimates = torch.sum(evecs[:, 0, :] ** 2 * torch.log(evals), dim=1)
@@ -222,42 +244,46 @@ def slq_logdet(matvec, probes, num_steps=30, return_std=False):
     return mean
 
 
-def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200):
+def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200, rowsum=None):
     """Preconditioned CG for SPD ``A x = b`` with an SPD preconditioner
     apply ``precond(r) ~= A^{-1} r`` (vector or multi-RHS, every column
     iterated until all meet ``||r|| <= tol ||b||``). Returns ``(x,
     iterations)``; the stopping test reads one scalar back to the host per
-    iteration."""
+    iteration. With the rows split over ranks, ``rowsum`` completes each
+    column sum over them, so every rank stops at the same iteration."""
+    red = rowsum or (lambda t: t)
     squeeze = b.ndim == 1
     B = b[:, None] if squeeze else b
     X = torch.zeros_like(B)
     R = B                           # B - A X at X = 0
     Z = precond(R)
     P = Z
-    rz = torch.sum(R * Z, dim=0)
-    b2 = torch.clamp_min(torch.sum(B * B, dim=0), torch.finfo(B.dtype).tiny)
+    rz = red(torch.sum(R * Z, dim=0))
+    b2 = torch.clamp_min(red(torch.sum(B * B, dim=0)),
+                         torch.finfo(B.dtype).tiny)
     tol2 = tol * tol
     it = 0
-    while it < maxiter and bool(torch.any(torch.sum(R * R, dim=0) / b2
+    while it < maxiter and bool(torch.any(red(torch.sum(R * R, dim=0)) / b2
                                           > tol2)):
         AP = matvec(P)
-        denom = torch.sum(P * AP, dim=0)
+        denom = red(torch.sum(P * AP, dim=0))
         alpha = rz / torch.where(denom > 0, denom, 1.0)
         X = X + alpha * P
         R = R - alpha * AP
         Z = precond(R)
-        rz_new = torch.sum(R * Z, dim=0)
+        rz_new = red(torch.sum(R * Z, dim=0))
         P = Z + (rz_new / torch.where(rz > 0, rz, 1.0)) * P
         rz = rz_new
         it += 1
     return (X[:, 0] if squeeze else X), it
 
 
-def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):
+def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000, rowsum=None):
     """Jacobi-preconditioned CG for SPD ``A x = b``: :func:`pcg_solve`
     with the preconditioner ``r / precond_diag``."""
     Minv = (1.0 / precond_diag)[:, None]
-    return pcg_solve(matvec, lambda R: Minv * R, b, tol=tol, maxiter=maxiter)
+    return pcg_solve(matvec, lambda R: Minv * R, b, tol=tol, maxiter=maxiter,
+                     rowsum=rowsum)
 
 
 def _per_member(apply, info, in_dims, args):
@@ -354,12 +380,6 @@ class _SlqLogdet(torch.autograd.Function):
         return (vals_bar, diag_bar) + (None,) * 8
 
 
-def _not_ported(what, where):
-    return NotImplementedError(
-        "SparseSolver %s is not ported to george_tpu_torch yet (ROADMAP.md "
-        "Queue 1, %s)" % (what, where))
-
-
 class SparseSolver(object):
     """Compact-support sparse solver with the george solver protocol.
 
@@ -385,6 +405,12 @@ class SparseSolver(object):
     :param device: torch device (default ``"cuda"``; pass ``"cpu"``
         explicitly on a host without a card).
     :param dtype: working dtype (default ``torch.float64``).
+    :param mesh: a one-dimensional ``torch.distributed`` ``DeviceMesh``
+        (``parallel.chain_mesh()``) to split the rows over; every rank
+        runs the same calls with the same data and gets whole results.
+        The iterative path only (``direct=True`` raises); the likelihood,
+        its gradient, solves, matvecs and ``apply_sqrt`` run sharded, and
+        ``loglike_fn`` (``GP.log_prob_fn``) raises ``NotImplementedError``.
     """
 
     matrix_free = True
@@ -394,8 +420,11 @@ class SparseSolver(object):
                  direct="auto", probes=None,
                  grad_probes=None, device="cuda", dtype=torch.float64,
                  **kwargs):
-        if mesh is not None:
-            raise _not_ported("mesh= (row sharding)", "slice D, item 11")
+        if mesh is not None and not hasattr(mesh, "get_group"):
+            raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                            "(george_tpu_torch.parallel.chain_mesh)")
+        self.mesh = mesh
+        self._shard = None
         if direct not in ("auto", True, False):
             raise ValueError(
                 "direct must be 'auto', True, or False, got %r" % (direct,)
@@ -418,14 +447,14 @@ class SparseSolver(object):
         self.cg_iterations = None
 
     def _tensor(self, a):
-        return torch.tensor(np.asarray(a, dtype=np.float64),
+        return torch.tensor(np.ascontiguousarray(a, dtype=np.float64),
                             device=self.device, dtype=self.dtype)
 
     def _probe_block(self, given, seed):
         """``(n, num_probes)`` Rademacher probes: ``given`` (numpy
         ``(num_probes, n)``) or drawn from a generator seeded with
         ``seed``."""
-        n = self._x.shape[0]
+        n = self._n
         if given is not None:
             given = np.asarray(given, dtype=np.float64)
             if given.shape != (self.num_probes, n):
@@ -436,6 +465,29 @@ class SparseSolver(object):
         bits = torch.randint(0, 2, (self.num_probes, n), generator=gen,
                              device=self.device)
         return (2 * bits - 1).to(self.dtype).mT.contiguous()
+
+    # -- row sharding ------------------------------------------------------
+
+    def _rowsum(self, x):
+        """Column sums over the rows, completed over the mesh's ranks."""
+        return x if self._shard is None else self._shard.sum(x)
+
+    def _local(self, Y):
+        """This rank's rows of ``Y`` (``(n, ...)``, every row): zero rows
+        pad it to the mesh's multiple first."""
+        if self._shard is None:
+            return Y
+        if self._pad_rows:
+            Y = torch.cat([Y, Y.new_zeros((self._pad_rows,) + Y.shape[1:])])
+        a, b = self._shard.block(Y.shape[0])
+        return Y[a:b]
+
+    def _whole(self, Y):
+        """Every row of ``Y`` from each rank's block, padding dropped."""
+        if self._shard is None:
+            return Y
+        Y = self._shard.gather(Y)
+        return Y[:Y.shape[0] - self._pad_rows]
 
     # -- setup -------------------------------------------------------------
 
@@ -449,6 +501,11 @@ class SparseSolver(object):
         radius = self.radius
         if radius is None:
             radius = self.kernel.get_cutoff()
+        self._shard = row_shard(self.mesh)
+        if self.mesh is not None and self.direct is True:
+            raise ValueError(
+                "direct=True, but the direct factorization is "
+                "single-device only; drop mesh= or use direct=False")
         nns = normalize_nns(nns)
         if isinstance(nns, tuple):
             nbr_idx, row_ptr = (np.asarray(a, dtype=np.int64) for a in nns)
@@ -459,7 +516,10 @@ class SparseSolver(object):
         else:
             nbr_idx, row_ptr = radius_neighbors_csr(x, float(radius))
         self.nnz = int(row_ptr[-1])
-        band = banded_offsets(nbr_idx, row_ptr)
+        # under a mesh the band is not taken: the ELL gather is what the
+        # rows split over (as in the JAX package)
+        band = banded_offsets(nbr_idx, row_ptr) if self._shard is None \
+            else None
         self._dia_offsets = None
         self._dia = None
         if band is not None:
@@ -471,7 +531,24 @@ class SparseSolver(object):
             self._dia = DiaOperator(offsets, n)
         else:
             nbr_np, mask_np = ell_from_csr(nbr_idx, row_ptr)
+        self._n = n
+        self._pad_rows = 0
+        if self._shard is not None:
+            # padded rows: no neighbours, a unit diagonal
+            pad = (-n) % self._shard.world
+            self._pad_rows = pad
+            nbr_np = np.concatenate(
+                [nbr_np, np.zeros((pad, nbr_np.shape[1]), nbr_np.dtype)])
+            mask_np = np.concatenate(
+                [mask_np, np.zeros((pad, mask_np.shape[1]), bool)])
+            x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+            yerr2 = np.concatenate([yerr2, np.ones(pad)])
+            a, b = self._shard.block(n + pad)
+            nbr_np, mask_np = nbr_np[a:b], mask_np[a:b]
+            yerr2 = yerr2[a:b]
         self._x = self._tensor(x)
+        # the points of this rank's rows
+        self._xrows = self._x if self._shard is None else self._x[a:b]
         self._nbr = torch.as_tensor(nbr_np.astype(np.int64),
                                     device=self.device)
         self._mask = torch.as_tensor(mask_np, device=self.device)
@@ -482,8 +559,9 @@ class SparseSolver(object):
             # the entry table at the compute-time theta, shared by every
             # fixed-theta application (CG, SLQ, Lanczos, solves)
             self._vals = self._values(self._theta)
-            kdiag = torch.broadcast_to(pair(self._theta, self._x, self._x),
-                                       (n,))
+            kdiag = torch.broadcast_to(
+                pair(self._theta, self._xrows, self._xrows),
+                self._diag.shape)
             self._pdiag = kdiag + self._diag   # Jacobi preconditioner
         # float32 cannot reach 1e-10 residuals: floor the tolerance at the
         # dtype's achievable accuracy
@@ -523,8 +601,11 @@ class SparseSolver(object):
             with torch.no_grad():
                 ld, std = slq_logdet(
                     self._apply_fixed,
-                    self._probe_block(self.probes, self.seed).mT,
+                    self._local(self._probe_block(self.probes,
+                                                  self.seed)).mT,
                     num_steps=self.num_steps, return_std=True,
+                    rowsum=None if self._shard is None else self._rowsum,
+                    n=n,
                 )
             if not bool(torch.isfinite(ld)):
                 raise np.linalg.LinAlgError("SLQ log-determinant diverged")
@@ -534,12 +615,23 @@ class SparseSolver(object):
 
     def _values(self, theta):
         return ell_values(self.kernel.pair_fn, theta, self._x, self._nbr,
-                          self._mask)
+                          self._mask, rows=self._xrows)
 
     def _apply(self, vals, Y, diag):
+        """``(K + diag) Y`` on this rank's rows (all of them unsharded):
+        the DIA kernel on a band, else the ELL gather, which under a mesh
+        gathers ``Y`` from every rank first."""
         if self._dia is not None:
-            return self._dia(vals, diag, Y)
-        return ell_apply(vals, self._nbr, diag, Y)
+            # the kernel takes row-major blocks; a transposed right-hand
+            # side (gp.predict's K_xs^T) and CG's updates of it are not
+            return self._dia(vals, diag, Y.contiguous())
+        if self._shard is None:
+            return ell_apply(vals, self._nbr, diag, Y)
+        squeeze = Y.ndim == 1
+        Yl = Y[:, None] if squeeze else Y
+        out = (torch.einsum("ik,ikr->ir", vals, self._shard.gather(Yl)[
+            self._nbr]) + diag[:, None] * Yl)
+        return out[:, 0] if squeeze else out
 
     def _apply_fixed(self, Y):
         """``(K + diag) Y`` at the compute-time theta."""
@@ -560,9 +652,10 @@ class SparseSolver(object):
                 self.cg_iterations = 0
                 return banded_solve(*self._band_factors, B)
             X, self.cg_iterations = cg_solve(
-                self._apply_fixed, B, self._pdiag, tol=self._eff_tol,
-                maxiter=self.maxiter)
-            return X
+                self._apply_fixed, self._local(B), self._pdiag,
+                tol=self._eff_tol, maxiter=self.maxiter,
+                rowsum=None if self._shard is None else self._rowsum)
+            return self._whole(X)
 
     def loglike_fn(self):
         """Pure ``f(theta_kernel, diag, r) -> log-likelihood`` (the
@@ -583,6 +676,11 @@ class SparseSolver(object):
         carry clipped, masked slots that point at the row)."""
         if self._direct_loglike is not None:
             return self._direct_loglike
+        if self._shard is not None:
+            raise NotImplementedError(
+                "SparseSolver.loglike_fn (GP.log_prob_fn) does not shard "
+                "over a mesh; compute the GP without mesh= for the "
+                "samplers")
         n = self._x.shape[0]
         rows = torch.arange(n, device=self.device)[:, None]
         self_slot = torch.argmax(((self._nbr == rows) & self._mask).to(
@@ -618,17 +716,17 @@ class SparseSolver(object):
     def apply_forward(self, y, i=0):
         """``(K + diag) y`` (``i == 0``) or ``(dK/dtheta_{i-1}) y``, through
         the same apply as the solves (the DIA kernel on a band)."""
-        Y = self._tensor(y)
+        Y = self._local(self._tensor(y))
         with torch.no_grad():
             if i == 0:
-                return self._numpy(self._apply_fixed(Y))
+                return self._numpy(self._whole(self._apply_fixed(Y)))
         dvals = self._tangent_values(i - 1)
         with torch.no_grad():
-            return self._numpy(self._apply(dvals, Y,
-                                           torch.zeros_like(self._diag)))
+            return self._numpy(self._whole(self._apply(
+                dvals, Y, torch.zeros_like(self._diag))))
 
     def get_inverse(self):
-        return self.apply_inverse(np.eye(self._x.shape[0]))
+        return self.apply_inverse(np.eye(self._n))
 
     def apply_sqrt(self, r, num_steps=None):
         """Rows of ``r`` transported by a square root of ``K + diag`` (the
@@ -649,8 +747,10 @@ class SparseSolver(object):
             if self._band_factors is not None:
                 cols = banded_sqrt_matvec(*self._band_factors, R)
             else:
-                cols = lanczos_fn_matvec(self._apply_fixed, R.contiguous(),
-                                         torch.sqrt, num_steps=m)
+                cols = self._whole(lanczos_fn_matvec(
+                    self._apply_fixed, self._local(R).contiguous(),
+                    torch.sqrt, num_steps=m,
+                    rowsum=None if self._shard is None else self._rowsum))
         out = self._numpy(cols).T
         return out[0] if squeeze else out
 
@@ -682,16 +782,18 @@ class SparseSolver(object):
         else:
             probes = self._probe_block(self.grad_probes, self.seed + 1)
             Kinv_u = self._solve(probes)
-            av = torch.cat([a[:, None], probes], dim=1)      # (n, 1 + P)
+            # this rank's rows (all of them unsharded)
+            av = self._local(torch.cat([a[:, None], probes], dim=1))
+            Kinv_u_l = self._local(Kinv_u)
             zero = torch.zeros_like(self._diag)
             g_kernel = np.zeros(self._theta.shape[0])
             for k in range(len(g_kernel)):
                 dvals = self._tangent_values(k)
                 with torch.no_grad():
                     dK_av = self._apply(dvals, av, zero)
-                    quad = torch.dot(a, dK_av[:, 0])
-                    trace = torch.mean(torch.sum(Kinv_u * dK_av[:, 1:],
-                                                 dim=0))
+                    quad = self._rowsum(torch.dot(av[:, 0], dK_av[:, 0]))
+                    trace = torch.mean(self._rowsum(torch.sum(
+                        Kinv_u_l * dK_av[:, 1:], dim=0)))
                 g_kernel[k] = 0.5 * float(quad) - 0.5 * float(trace)
                 del dvals, dK_av
             # diag(K^{-1}) by Hutchinson with the same probes
@@ -714,10 +816,13 @@ class SparseSolver(object):
 
     def __getstate__(self):
         state = self.__dict__.copy()
-        for k in ("_x", "_nbr", "_mask", "_diag", "_theta", "_vals",
-                  "_pdiag", "_direct_loglike", "_band_factors", "_dia"):
+        for k in ("_x", "_xrows", "_nbr", "_mask", "_diag", "_theta",
+                  "_vals", "_pdiag", "_direct_loglike", "_band_factors",
+                  "_dia"):
             state.pop(k, None)
         state["computed"] = False
+        state["mesh"] = None      # a process group does not serialize
+        state["_shard"] = None
         return state
 
     def __setstate__(self, state):

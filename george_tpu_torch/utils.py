@@ -4,7 +4,8 @@ ported slice needs)."""
 
 import numpy as np
 
-__all__ = ["multivariate_gaussian_samples", "numerical_gradient"]
+__all__ = ["multivariate_gaussian_samples", "numerical_gradient",
+           "check_gradient"]
 
 
 def multivariate_gaussian_samples(matrix, N, mean=None):
@@ -32,3 +33,32 @@ def numerical_gradient(f, x, dx=1.234e-6):
         x[i] += dx
         g[i] = 0.5 * (fp - fm) / dx
     return g
+
+
+def check_gradient(obj, *args, **kwargs):
+    """Check a model's ``get_gradient`` against centred differences of its
+    ``get_value`` in each parameter (step ``eps``, default 1.23e-5); the
+    other arguments go to both methods. Raises ``AssertionError`` naming
+    the first parameter that disagrees."""
+    eps = kwargs.pop("eps", 1.23e-5)
+
+    grad0 = obj.get_gradient(*args, **kwargs)
+    vector = obj.get_parameter_vector()
+    for i, v in enumerate(vector):
+        vector[i] = v + eps
+        obj.set_parameter_vector(vector)
+        p = obj.get_value(*args, **kwargs)
+
+        vector[i] = v - eps
+        obj.set_parameter_vector(vector)
+        m = obj.get_value(*args, **kwargs)
+
+        vector[i] = v
+        obj.set_parameter_vector(vector)
+
+        grad = 0.5 * (p - m) / eps
+        assert np.allclose(grad0[i], grad), (
+            "grad computation failed for '{0}' ({1})".format(
+                obj.get_parameter_names()[i], i
+            )
+        )

@@ -258,6 +258,59 @@ def test_operator_takes_contiguous_offsets_only():
         tdia.DiaOperator([0, 2, 3], 10)
 
 
+@pytest.mark.parametrize("dtype,r,width", [
+    (torch.float64, 512, 62), (torch.float32, 512, 124),
+    (torch.float64, 40, 40), (torch.float32, 1, 1)],
+    ids=["f64-r512", "f32-r512", "f64-r40", "f32-r1"])
+def test_stream_width_on_the_bench_band(dtype, r, width):
+    """A block wider than the streaming plan takes goes out in launches of
+    the widest width it takes, on bench_dia's band (n = 2e5, D = 301)
+    under the H100's limits; a block it takes goes out whole."""
+    n, D = 200_000, 301
+    w = tdia.stream_width(n, D, r, dtype, limits=tdia.H100)
+    assert w == width
+    assert tdia.launch_plan(n, D, w, dtype, limits=tdia.H100).variant == (
+        "stream")
+    if w < r:
+        assert tdia.launch_plan(n, D, w + 1, dtype,
+                                limits=tdia.H100).variant == "device"
+
+
+def test_stream_width_keeps_the_device_kernel_for_wide_bands():
+    """A band so wide that the streaming plan takes fewer than
+    ``DEVICE_COLS`` columns goes to the device-memory kernel whole."""
+    n, D, f32 = 50_000, 2001, torch.float32
+    assert tdia.launch_plan(n, D, 32, f32, limits=tdia.H100).variant == (
+        "device")
+    assert tdia.launch_plan(n, D, 8, f32, limits=tdia.H100).variant == (
+        "stream")
+    assert tdia.stream_width(n, D, 32, f32, limits=tdia.H100) == 32
+
+
+def test_split_columns_joins_the_blocks():
+    """``split_columns`` applies a column-wise map block by block and
+    joins the blocks into what one call gives."""
+    rng = np.random.default_rng(6)
+    offsets = BANDS[0]
+    vals, diag = map(torch.as_tensor, _band(rng, 300, offsets))
+    calls = []
+
+    def apply(y):
+        calls.append(tuple(y.shape))
+        assert y.is_contiguous()
+        return tdia.dia_matvec_plain(vals, offsets, diag, y)
+
+    Y = torch.as_tensor(rng.standard_normal((300, 130)))
+    whole = tdia.dia_matvec_plain(vals, offsets, diag, Y)
+    np.testing.assert_array_equal(
+        tdia.split_columns(apply, Y, 62).numpy(), whole.numpy())
+    assert calls == [(300, 62), (300, 62), (300, 6)]
+    calls.clear()
+    tdia.split_columns(apply, Y[:, 0].contiguous(), 62)
+    tdia.split_columns(apply, Y[:, :62].contiguous(), 62)
+    assert calls == [(300,), (300, 62)]
+
+
 def test_solver_keeps_one_operator_per_band(monkeypatch):
     """``SparseSolver.compute`` prepares the band's operator once; every
     apply goes through it and equals the plain version."""

@@ -168,11 +168,12 @@ def test_error_paths():
 
 
 def test_hodlr_solver_refuses_unported_options():
-    """``mesh=`` is the one HODLR option not ported; ``sym``, ``knn`` and
-    ``debug`` are (``tests/test_torch_hodlr_sym.py``,
-    ``tests/test_torch_aux.py``)."""
+    """``mesh=`` takes a ``DeviceMesh`` (``tests/test_torch_parallel.py``)
+    and refuses anything else; it does not combine with ``sym=True``;
+    ``sym``, ``knn`` and ``debug`` are ported
+    (``tests/test_torch_hodlr_sym.py``, ``tests/test_torch_aux.py``)."""
     k = _kernel(tgt)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tgt.HODLRSolver(k, device=DEV, mesh=object())
     for kw in ({"sym": True}, {"knn": 8}, {"debug": True},
                {"verbose": True}):
@@ -311,6 +312,9 @@ def test_every_submodule_imports_with_jax_blocked():
         "assert 'george_tpu_torch.sampling.vi' in names\n"
         "assert 'george_tpu_torch.checkpoint' in names\n"
         "assert 'george_tpu_torch.diagnostics' in names\n"
+        "assert 'george_tpu_torch.parallel' in names\n"
+        "assert 'george_tpu_torch.parallel.collectives' in names\n"
+        "assert 'george_tpu_torch.entry' in names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -58,7 +58,7 @@ def _data(n, seed=0, span=20.0):
 
 
 def _dense(kernel, x, yerr):
-    K = kernel.get_value(x)
+    K = kernel.get_value(x, device=DEV)
     K[np.diag_indices_from(K)] += yerr ** 2
     return K
 

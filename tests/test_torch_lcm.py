@@ -52,15 +52,15 @@ def test_lcm_pair_fn_matches_reference(T, Q):
     assert kt.sort_axes == kj.sort_axes == [0]
     x1 = np.column_stack([rng.uniform(0, 5, 37), rng.integers(0, T, 37)])
     x2 = np.column_stack([rng.uniform(0, 5, 23), rng.integers(0, T, 23)])
-    Kj, Kt = kj.get_value(x1, x2), kt.get_value(x1, x2)
+    Kj, Kt = kj.get_value(x1, x2), kt.get_value(x1, x2, device=DEV)
     np.testing.assert_allclose(Kt, Kj, rtol=1e-12, atol=1e-14)
-    np.testing.assert_allclose(kt.get_value(x1, diag=True),
+    np.testing.assert_allclose(kt.get_value(x1, diag=True, device=DEV),
                                kj.get_value(x1, diag=True), rtol=1e-12)
-    np.testing.assert_allclose(kt.get_gradient(x1, x2),
+    np.testing.assert_allclose(kt.get_gradient(x1, x2, device=DEV),
                                kj.get_gradient(x1, x2), rtol=1e-10,
                                atol=1e-12)
     with pytest.raises(ValueError):
-        kt.get_value(x1[:, :1])
+        kt.get_value(x1[:, :1], device=DEV)
 
 
 def test_lcm_parameters_carry_over():
@@ -77,7 +77,7 @@ def test_lcm_parameters_carry_over():
     assert kt.children[1].get_parameter_vector()[0] == pytest.approx(
         kj.get_parameter_vector()[-1])
     x = np.column_stack([np.linspace(0, 3, 9), np.arange(9) % 2])
-    np.testing.assert_allclose(kt.get_value(x), kj.get_value(x),
+    np.testing.assert_allclose(kt.get_value(x, device=DEV), kj.get_value(x),
                                rtol=1e-12)
     with pytest.raises(ValueError):
         tk.LCMKernel(logBK[:3], [tk.ExpSquaredKernel(1.0)], T=2, Q=1)

@@ -98,11 +98,13 @@ def test_wendland_values_and_gradients_match():
         assert kt.get_cutoff() == kj.get_cutoff()
         x, _, _ = _data(ndim, 60)
         x[1] = x[0]                     # a zero distance off the diagonal
-        np.testing.assert_allclose(kt.get_value(x), kj.get_value(x),
+        np.testing.assert_allclose(kt.get_value(x, device=DEV),
+                                   kj.get_value(x),
                                    rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(kt.get_gradient(x), kj.get_gradient(x),
+        np.testing.assert_allclose(kt.get_gradient(x, device=DEV),
+                                   kj.get_gradient(x),
                                    rtol=1e-12, atol=1e-12)
-        assert np.isfinite(kt.get_gradient(x)).all()
+        assert np.isfinite(kt.get_gradient(x, device=DEV)).all()
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])
@@ -414,7 +416,7 @@ def test_solver_options_and_refusals():
         tgt.SparseSolver(k2, direct=True, device=DEV).compute(x2, 0.1)
     with pytest.raises(ValueError):
         tgt.SparseSolver(k2, direct="yes", device=DEV)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):     # a mesh is a DeviceMesh
         tgt.SparseSolver(k2, mesh=object(), device=DEV)
     s = tgt.SparseSolver(k2, device=DEV)
     s.compute(x2, 0.3)                  # not banded: "auto" goes iterative
@@ -428,7 +430,7 @@ def test_solver_options_and_refusals():
                 + 64 * np.log(2 * np.pi)), rel=1e-8)
     Kinv = s.get_inverse()
     assert Kinv.shape == (64, 64)
-    K = k2.get_value(x2) + 0.09 * np.eye(64)
+    K = k2.get_value(x2, device=DEV) + 0.09 * np.eye(64)
     assert np.allclose(Kinv @ K, np.eye(64), atol=1e-6)
     state = s.__getstate__()
     assert not state["computed"] and "_vals" not in state
