@@ -20,7 +20,9 @@ sizes the project benchmarks:
   pivots, and the multi-output LCM model at n = 1e5; sampler checkpoints;
 * the strong-admissibility H-matrix solver at the 2-D configuration of
   ``benchmarks/bench_hmatrix.py`` (``ExpSquaredKernel([1.5, 1.5])``,
-  ``min_size`` 64, rank 16) up to n = 1e5.
+  ``min_size`` 64, rank 16) up to n = 1e5;
+* ``parallel`` and the solvers' ``mesh=`` on 2 ranks sharing the card;
+* the eight examples through their PyTorch twins.
 
 Phases:
 
@@ -77,10 +79,11 @@ Phases:
     ``debug=True`` at n = 2e4 in float64 (the compression error against
     the exact kernel, the dense gradient comparison) and kNN-guided pivots
     (``knn=8``) at n = 1e5 in float32 against the anchor;
-14. the multi-output LCM model of ``examples/multioutput.py::at_scale`` at
-    n = 1e5 (2 tasks of 5e4 points) through the hierarchical solver, with
-    the task-1 prediction: rank 48 in float64 and float32, and rank 96 with
-    refinement in float64 (see ``phase_lcm`` for why);
+14. the multi-output LCM model of ``examples/multioutput.py::at_scale``
+    (its data from the port's twin) at n = 1e5 (2 tasks of 5e4 points)
+    through the hierarchical solver, with the task-1 prediction: rank 48
+    in float64 and float32, and rank 96 with refinement in float64 (see
+    ``phase_lcm`` for why);
 15. after each NUTS run, its final state through ``checkpoint`` and back,
     bit for bit, and the ``diagnostics`` spans of the solvers' computes;
 16. the H-matrix solver (``HMatrixSolver``) on bench_hmatrix's data: (a)
@@ -94,8 +97,9 @@ Phases:
     iterations, peak memory, the near field's bytes, a profile of one
     ``dot_solve``, and the two dtypes' likelihoods against each other; (d)
     ``examples/spatial.py``'s assertions at n = 2000 beside the weak HODLR
-    solver; (e) the float64 1-D whitener on the smooth dataset at n = 2e4
-    against the dense solver, with the leaf kernel's launches;
+    solver, through the port's twin; (e) the float64 1-D whitener on the
+    smooth dataset at n = 2e4 against the dense solver, with the leaf
+    kernel's launches;
 17. parallel and the kernel API: (a) the CSR ``get_value(x, nns=)`` and
     ``get_gradient(x, nns=)`` on bench_dia's data (n = 2e5) in float64 and
     float32 against the sparse solver's entry table and the CPU, and
@@ -108,7 +112,21 @@ Phases:
     ``gp.predict``; (d) NUTS at bench_nuts's n = 512 configuration and
     the ensemble, sharded against unsharded; (e) a one-rank NCCL group
     running (c)'s HODLR case; (f) ``entry.dryrun_multichip(2)`` on the
-    card. Each rank counts its own launches.
+    card; then on the same 2 ranks (g) ``HODLRSolver(mesh=, sym=True)``
+    at the smooth n = 1e5 in float64 (256 leaves a rank) against the
+    anchor and the one-rank ``sym=True`` run (log-determinant,
+    ``apply_sqrt``, ``apply_inverse_sym_W``, ``GP.sample``, the exact
+    gradient) and (h) ``SparseSolver(mesh=)``'s ``log_prob_fn`` on
+    bench_dia's data (n = 2e5): float64 against the one-rank iterative
+    run, float32 under ``vmap`` over 2 chains against phase 7's direct
+    float64 values. Each rank counts its own launches;
+18. the examples' PyTorch twins (``george_tpu_torch.examples``) on the
+    card, each through its ``main`` with the launch counts set to 0
+    before it: every twin at its default size, ``scaling`` also at
+    n = 10,000, ``hyper`` at its ``--smoke`` iteration counts,
+    ``multioutput``'s ``at_scale`` at n = 10,000; the examples' own
+    asserts are the gate, and each leaf-kernel shape they launch is held
+    to the plain version.
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
@@ -145,9 +163,10 @@ N_DIA = 200_000
 # NUTS warmup and sample steps per dtype. bench_nuts's 200 + 200 took
 # 1227 s in float64 alone on an H100 (57,698 batched leapfrog steps of
 # 21 ms, host-bound), past this script's time limit, so
-# the path runs 15 + 15 here (NUTS_STEPS = 200 is the full configuration;
-# 25 + 25 until phase 17 added two more float64 runs of it)
-NUTS_STEPS = 15
+# the path runs 10 + 10 here (NUTS_STEPS = 200 is the full configuration;
+# 25 + 25 until phase 17 added two more float64 runs of it, 15 + 15 until
+# phase 17 (g), (h) and phase 18 took the script to 885 s of its 1200)
+NUTS_STEPS = 10
 # benchmarks/bench_hmatrix.py: its headline n, and its recorded CPU-float64
 # dense likelihoods of the seed-3 datasets at n = 4000 and 16000
 N_HM = 100_000
@@ -1631,23 +1650,12 @@ def phase_selfcheck_knn(device, n_debug, n_knn):
 
 
 def lcm_dataset(n_total):
-    """``examples/multioutput.py::at_scale``'s model and data, same numpy
-    stream: x (coordinate, task id), y, yerr, kernel."""
-    from george_tpu_torch import kernels
+    """``examples/multioutput.py::at_scale``'s model and data, from the
+    port's twin (``george_tpu_torch.examples.multioutput``): x (coordinate,
+    task id), y, yerr, kernel."""
+    from george_tpu_torch.examples.multioutput import at_scale_problem
 
-    rng = np.random.default_rng(11)
-    n_per = n_total // 2
-    xs = np.sort(rng.uniform(0, 200.0, n_per))
-    latent = np.sin(0.3 * xs)
-    y0 = 1.0 * latent + 0.1 * rng.standard_normal(n_per)
-    y1 = 0.6 * latent + 0.1 * rng.standard_normal(n_per)
-    x = np.concatenate([np.stack([xs, np.zeros(n_per)], axis=1),
-                        np.stack([xs, np.ones(n_per)], axis=1)])
-    y = np.concatenate([y0, y1])
-    kernel = kernels.LCMKernel(
-        logBK=np.log([1.0, 0.6, 0.05, 0.05]),
-        children=[kernels.ExpSquaredKernel(metric=10.0)], T=2, Q=1, ndim=1)
-    return x, y, 0.1, kernel
+    return at_scale_problem(n_total)
 
 
 def phase_lcm(device, n):
@@ -2060,50 +2068,24 @@ def phase_hmatrix_headline(device, n, dtype):
 
 
 def phase_hmatrix_spatial(device, n=2000):
-    """(d) examples/spatial.py at its n = 2000, float64: the prediction
-    RMSE and coverage, and the strong solver's likelihood error against the
-    dense one beside the weak HODLR solver's at the same rank (which
-    launches the leaf kernel)."""
+    """(d) examples/spatial.py at its n = 2000, float64, through the port's
+    twin (``george_tpu_torch.examples.spatial.main``, whose asserts hold
+    the prediction RMSE and coverage and the strong solver's likelihood
+    error against the dense one beside the weak HODLR solver's at the same
+    rank, which launches the leaf kernel)."""
     import torch
-    import george_tpu_torch as gtt
+    from george_tpu_torch.examples import spatial
 
-    f64 = torch.float64
-    rng = np.random.default_rng(7)
-    x = rng.uniform(0, 12, (n, 2))
-    truth = np.sin(x[:, 0]) * np.cos(0.7 * x[:, 1])
-    y = truth + 0.1 * rng.standard_normal(n)
-    yerr = 0.1 * np.ones(n)
-    gp = hmatrix_gp(device, f64, precond_rank=64)
-    gp.compute(x, yerr)
-    ll = gp.log_likelihood(y)
-    t = rng.uniform(1, 11, (400, 2))
-    mu, var = gp.predict(y, t, return_var=True)
-    ft = np.sin(t[:, 0]) * np.cos(0.7 * t[:, 1])
-    out = {"rmse": float(np.sqrt(np.mean((mu - ft) ** 2))),
-           "coverage": float(np.mean(np.abs(mu - ft)
-                                     <= 2 * np.sqrt(var) + 1e-12))}
-    ll_exact = dense_gp(hmatrix_kernel(), x, yerr, device).log_likelihood(y)
-    gpw = gtt.GP(hmatrix_kernel(), solver=gtt.HODLRSolver, min_size=64,
-                 rank=16, device=device, dtype=f64)
-    gpw.compute(x, yerr)
-    ll_weak = gpw.log_likelihood(y)
-    st = gpw.solver._struct
-    out["weak_leaves"] = [st.n_pad // st.m, st.m]
+    out = spatial.main(n, device=device, dtype=torch.float64)
     if tuple(out["weak_leaves"]) != HM_WEAK_LEAVES:
         raise RuntimeError("hmatrix (d): the weak solver's leaves %s are not "
                            "the kernel phase's %s"
                            % (out["weak_leaves"], HM_WEAK_LEAVES))
-    out["err_strong"] = abs(ll - ll_exact) / abs(ll_exact)
-    out["err_weak"] = abs(ll_weak - ll_exact) / abs(ll_exact)
     log("hmatrix (d) spatial n=%d f64: ll %.6f, dense %.6f, weak %.6f; RMSE "
         "%.4f (limit 0.1), 2-sigma coverage %.3f (limit 0.9); rel err strong "
         "%.3e (limit 5e-4), weak %.3e (strong must be < 0.1 x weak)"
-        % (n, ll, ll_exact, ll_weak, out["rmse"], out["coverage"],
-           out["err_strong"], out["err_weak"]))
-    if not (out["rmse"] < 0.1 and out["coverage"] > 0.9
-            and out["err_strong"] < 5e-4
-            and out["err_strong"] < 0.1 * out["err_weak"]):
-        raise RuntimeError("hmatrix (d): spatial example's assertions fail")
+        % (n, out["ll"], out["ll_exact"], out["ll_weak"], out["rmse"],
+           out["coverage"], out["err_strong"], out["err_weak"]))
     return out
 
 
@@ -2255,6 +2237,13 @@ P17_T_MESH = 1000
 # phase 11's NUTS options
 P17_NUTS_KW = dict(max_depth=8, target_accept=0.8, dense_mass=True,
                    segment_size=8)
+# (g): the rows apply_sqrt transports, the columns of the W^{-1}
+# application, and GP.sample's numpy seed
+P17_SYM_ROWS = 8
+P17_SAMPLE_SEED = 31
+# (h): the log_prob chains of the vmap, as shifts of the computed
+# parameters (log_rc, log_M)
+P17_LP_SHIFTS = [[0.0, 0.0], [0.05, -0.05]]
 
 
 def _max_rel(a, b):
@@ -2449,8 +2438,10 @@ def _free_port():
 
 def _p17_record():
     """Count this process's leaf-kernel and DIA-kernel launches from 0 and
-    record each launch's shape; returns ``(shapes, stop)``, ``stop()``
-    giving ``{"leaf": n, "leaf_B": [...], "dia": n, "dia_r": [...]}``."""
+    record each launch's shape; returns ``stop``, ``stop()`` giving
+    ``{"leaf": n, "leaf_B": [...], "leaf_shapes": [(B, m, m, dtype), ...],
+    "dia": n, "dia_r": [...], "dia_shapes": [(n, D, d_min, r, dtype),
+    ...]}``."""
     from george_tpu_torch.ops import chol, dia
 
     chol.chol_kernel_launches = 0
@@ -2459,21 +2450,25 @@ def _p17_record():
     leaf, launch = chol.cholesky_cuda, dia._launch
 
     def rec_leaf(A):
-        shapes["leaf"].append(int(A.shape[0]))
+        shapes["leaf"].append(tuple(A.shape) + (str(A.dtype)[6:],))
         return leaf(A)
 
-    def rec_dia(vals, diag, y, *args):
-        shapes["dia"].append(1 if y.ndim == 1 else int(y.shape[1]))
-        return launch(vals, diag, y, *args)
+    def rec_dia(vals, diag, y, d_min, D, *args):
+        shapes["dia"].append((int(y.shape[0]), int(D), int(d_min),
+                              1 if y.ndim == 1 else int(y.shape[1]),
+                              str(y.dtype)[6:]))
+        return launch(vals, diag, y, d_min, D, *args)
 
     chol.cholesky_cuda, dia._launch = rec_leaf, rec_dia
 
     def stop():
         chol.cholesky_cuda, dia._launch = leaf, launch
         return {"leaf": chol.chol_kernel_launches,
-                "leaf_B": sorted(set(shapes["leaf"])),
+                "leaf_B": sorted(set(b for b, _, _, _ in shapes["leaf"])),
+                "leaf_shapes": sorted(set(shapes["leaf"])),
                 "dia": dia.dia_kernel_launches,
-                "dia_r": sorted(set(shapes["dia"]))}
+                "dia_r": sorted(set(r for _, _, _, r, _ in shapes["dia"])),
+                "dia_shapes": sorted(set(shapes["dia"]))}
 
     return stop
 
@@ -2509,6 +2504,127 @@ def _p17_mesh_gp(mesh, dtype):
         out["mu"], out["var"] = gp.predict(y, t, return_var=True)
     out["launches"] = stop()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _p17_sym_rows():
+    """(g)'s rows for ``apply_sqrt`` ``(8, n)`` and columns for
+    ``apply_inverse_sym_W`` ``(n, 8)``."""
+    rng = np.random.default_rng(17)
+    return (rng.standard_normal((P17_SYM_ROWS, N_MAIN)),
+            rng.standard_normal((N_MAIN, P17_SYM_ROWS)))
+
+
+def _p17_sym_surface(gp, y):
+    """What (g) holds of a ``sym=True`` GP on the smooth dataset."""
+    s = gp.solver
+    R, Y = _p17_sym_rows()
+    out = {"ll": gp.log_likelihood(y), "logdet": s.log_determinant,
+           "sqrt": s.apply_sqrt(R), "winv": s.apply_inverse_sym_W(Y)}
+    np.random.seed(P17_SAMPLE_SEED)
+    out["sample"] = gp.sample()
+    return out
+
+
+def _p17_mesh_sym(mesh):
+    """(g) on this rank: ``HODLRSolver(mesh=, sym=True)`` on the smooth
+    n = 1e5 dataset in float64: compute, likelihood, log-determinant,
+    ``apply_sqrt`` of 8 rows, ``apply_inverse_sym_W`` of 8 columns,
+    ``GP.sample`` and the exact gradient, with this rank's leaf launches
+    and their shapes, seconds and peak memory."""
+    import torch
+    import george_tpu_torch as gtt
+
+    x, y, yerr, kernel = smooth_dataset(N_MAIN)
+    stop = _p17_record()
+    torch.cuda.reset_peak_memory_stats()
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                sym=True, mesh=mesh, device="cuda", dtype=torch.float64)
+    sync("cuda")
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync("cuda")
+    out = {"compute_s": time.perf_counter() - t0,
+           "sharded": gp.solver._shard is not None,
+           "local_leaves": int(gp.solver._factors["Lleaf"].shape[0])}
+    out.update(_p17_sym_surface(gp, y))
+    gp.grad_log_likelihood(y)
+    sync("cuda")
+    t0 = time.perf_counter()
+    out["grad"] = gp.grad_log_likelihood(y)
+    sync("cuda")
+    out["eval_s"] = time.perf_counter() - t0
+    out["launches"] = stop()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _p17_sparse_lp_gp(mesh, dtype):
+    """(h)'s GP: bench_dia's data (n = 2e5, seed 0) through the iterative
+    sparse solver (``direct=False``), rows split over ``mesh`` (``None``:
+    one rank), computed; with ``y``, ``yerr`` and the compute seconds."""
+    import george_tpu_torch as gtt
+
+    x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
+    gp = gtt.GP(kernel, solver=gtt.SparseSolver, direct=False, mesh=mesh,
+                device="cuda", dtype=dtype)
+    sync("cuda")
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync("cuda")
+    return gp, x, y, yerr, time.perf_counter() - t0
+
+
+def _p17_sparse_lp_eval(gp, x, y, yerr, dtype, chains):
+    """Value and gradient of ``gp.log_prob_fn`` at the computed parameters
+    (``ll``, ``grad``) with their seconds: one call, or with ``chains`` one
+    ``vmap`` over the chains of ``P17_LP_SHIFTS``, the first of which is
+    the computed parameters (``vmap_ll``, ``vmap_grad`` hold them all)."""
+    import torch
+
+    f = gp.log_prob_fn(x, y, yerr)
+    theta = torch.as_tensor(gp.get_parameter_vector(), device="cuda",
+                            dtype=dtype)
+    sync("cuda")
+    t0 = time.perf_counter()
+    if chains:
+        thetas = theta[None, :] + torch.as_tensor(
+            P17_LP_SHIFTS, device="cuda", dtype=dtype)
+        g, v = torch.func.vmap(torch.func.grad_and_value(f))(thetas)
+    else:
+        g, v = torch.func.grad_and_value(f)(theta)
+    sync("cuda")
+    out = {"seconds": time.perf_counter() - t0,
+           "logdet": gp.solver.log_determinant}
+    v, g = v.double().cpu().numpy(), g.double().cpu().numpy()
+    if chains:
+        out.update(vmap_ll=v, vmap_grad=g)
+        v, g = v[0], g[0]
+    out.update(ll=float(v), grad=g)
+    return out
+
+
+def _p17_sparse_log_prob(mesh):
+    """(h) on this rank: ``SparseSolver(mesh=).loglike_fn`` through
+    ``GP.log_prob_fn`` on bench_dia's data, float64 (one call) then
+    float32 (one ``vmap`` over 2 chains; each chain's CG and SLQ run one
+    after another, so this is twice a call), with seconds, peak memory and
+    launches of each."""
+    import torch
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        stop = _p17_record()
+        torch.cuda.reset_peak_memory_stats()
+        gp, x, y, yerr, compute_s = _p17_sparse_lp_gp(mesh, dtype)
+        res = _p17_sparse_lp_eval(gp, x, y, yerr, dtype,
+                                  dtype == torch.float32)
+        res.update(compute_s=compute_s, sharded=gp.solver._shard is not None,
+                   rows=int(gp.solver._nbr.shape[0]), launches=stop(),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[str(dtype).split(".")[-1]] = res
+        del gp
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2695,19 +2811,24 @@ def _p17_spawn(world, tasks, backend=None):
     return [results[r] for r in range(world)]
 
 
-def phase_parallel(device, nuts_ref=None):
-    """Phase 17: (a) the kernel API; (b)-(d) on 2 gloo ranks sharing the
-    card, against one-rank references computed here first; (e) a one-rank
-    NCCL group running (c)'s HODLR case; (f) the port's dry run
-    (``entry.dryrun_multichip``) on the card. ``nuts_ref`` is phase 11's
-    float64 ``(samples, stats, samples_per_sec)`` at ``NUTS_STEPS`` (8
-    chains in one batch), reported beside (d)'s check when given."""
+def phase_parallel(device, nuts_ref=None, sparse_ref=None):
+    """Phase 17: (a) the kernel API; (b)-(d), (g) and (h) on 2 gloo ranks
+    sharing the card, against one-rank references computed here first;
+    (e) a one-rank NCCL group running (c)'s HODLR case; (f) the port's dry
+    run (``entry.dryrun_multichip``) on the card. ``nuts_ref`` is phase
+    11's float64 ``(samples, stats, samples_per_sec)`` at ``NUTS_STEPS``
+    (8 chains in one batch), reported beside (d)'s check when given;
+    ``sparse_ref`` is phase 7's direct float64 result, which (h)'s float32
+    run is held to (computed here when not given)."""
     import torch
     import torch.distributed as dist
     from george_tpu_torch import parallel
     from george_tpu_torch.sampling import run_ensemble
 
     t_phase = time.perf_counter()
+    if sparse_ref is None:
+        x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
+        sparse_ref = phase_sparse_direct((x, y, yerr, kernel))["float64"]
     out = {"kernels": _p17_kernel_shapes()}
     torch.cuda.empty_cache()
     out["a"] = phase_kernel_api(device)
@@ -2727,6 +2848,24 @@ def phase_parallel(device, nuts_ref=None):
     ref["mesh"] = {"ll": gp.log_likelihood(y),
                    "grad": gp.grad_log_likelihood(y), "mu": mu, "var": var}
     del gp
+    # (g)'s: the symmetric factorization on one rank; its exact gradient
+    # is the fused likelihood's, through the same SMW cascade as (b)'s
+    t1 = time.perf_counter()
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
+                sym=True, device=device, dtype=torch.float64)
+    gp.compute(x, yerr)
+    ref["sym"] = _p17_sym_surface(gp, y)
+    sync(device)
+    ref["sym_s"] = time.perf_counter() - t1
+    del gp
+    # (h)'s: the iterative sparse log_prob_fn on one rank, float64
+    t1 = time.perf_counter()
+    gp, xs, ys, yerrs, _ = _p17_sparse_lp_gp(None, torch.float64)
+    ref["sparse_lp"] = _p17_sparse_lp_eval(gp, xs, ys, yerrs, torch.float64,
+                                           False)
+    ref["sparse_lp_s"] = time.perf_counter() - t1
+    del gp
+    torch.cuda.empty_cache()
     for which in ("hodlr", "sparse", "hmatrix"):
         gp, yy, t = _p17_predict_gps(which)
         t1 = time.perf_counter()
@@ -2762,7 +2901,8 @@ def phase_parallel(device, nuts_ref=None):
     # (b)-(d) on 2 ranks sharing the card
     t0 = time.perf_counter()
     ranks = _p17_spawn(P17_RANKS, ["_p17_mesh_f64", "_p17_mesh_f32",
-                                   "_p17_sharded_predict", "_p17_samplers"])
+                                   "_p17_sharded_predict", "_p17_samplers",
+                                   "_p17_mesh_sym", "_p17_sparse_log_prob"])
     out["ranks_s"] = time.perf_counter() - t0
     for r, res in enumerate(ranks):
         log("parallel rank %d: backend %s; all_reduce, all_gather, broadcast "
@@ -2778,6 +2918,8 @@ def phase_parallel(device, nuts_ref=None):
     out["b"] = _p17_check_mesh(ranks, ref["mesh"])
     out["c"] = _p17_check_predict(ranks, ref)
     out["d"] = _p17_check_samplers(ranks, ref, nuts_ref)
+    out["g"] = _p17_check_sym(ranks, ref)
+    out["h"] = _p17_check_sparse_lp(ranks, ref, sparse_ref)
 
     # (e) NCCL, one rank
     t0 = time.perf_counter()
@@ -2969,6 +3111,225 @@ def _p17_check_samplers(ranks, ref, nuts_ref):
                 and max(ens) <= 1e-12):
             raise RuntimeError("parallel (d): rank %d's samplers disagree "
                                "with the unsharded runs" % r)
+    return out
+
+
+def _p17_check_sym(ranks, ref):
+    """(g): each rank's ``HODLRSolver(mesh=, sym=True)`` against the
+    anchor and the one-rank ``sym=True`` run: log-determinant 1e-10
+    relative; ``apply_sqrt`` rows, ``W^{-1}`` columns and the ``GP.sample``
+    draw 1e-5 of the largest entry, the ``rtol`` of (b)'s ``np.allclose``
+    bounds: the row split reorders the ridge-regime skeleton solves
+    (cond(G) ~ 5e14, ROADMAP Queue 3 item 3), which moves (b)'s gradient
+    by 3e-4 and its predicted mean by 5e-7, and these products by 1e-7 to
+    3e-7 (NVIDIA H100 80GB HBM3, 700 W), while the log-determinant stays
+    within 1e-12; the exact gradient at (b)'s ``np.allclose`` bound; this
+    rank's leaf launches all of B = 256."""
+    one = ref["sym"]
+    out = {"reference_s": ref["sym_s"]}
+    for r, res in enumerate(ranks):
+        g = res["_p17_mesh_sym"]
+        row = {"ll_rel_anchor": check_anchor(
+            "parallel (g) rank %d f64 sym mesh" % r, g["ll"], ANCHOR_F64,
+            N_MAIN),
+            "logdet_rel": abs(g["logdet"] - one["logdet"]) / abs(
+                one["logdet"])}
+        for key in ("sqrt", "winv", "sample"):
+            row[key + "_rel"] = _max_rel(g[key], one[key])
+        row["grad_max_abs_vs_1rank"] = float(np.max(np.abs(
+            g["grad"] - ref["mesh"]["grad"])))
+        grad_ok = bool(np.allclose(g["grad"], ref["mesh"]["grad"],
+                                   atol=1e-6))
+        for key in ("compute_s", "eval_s", "peak_gb", "launches",
+                    "local_leaves", "sharded"):
+            row[key] = g[key]
+        out[r] = row
+        log("parallel (g) rank %d: sym=True sharded %s, %d local leaves; "
+            "compute %.3f s, value + gradient %.3f s, peak %.2f GB, leaf "
+            "launches %d of shapes %s; vs one rank: logdet %.3e (limit "
+            "1e-10), apply_sqrt %.3e, W^{-1} %.3e, GP.sample %.3e (limit "
+            "1e-5 each), gradient %.3e (np.allclose atol 1e-6: %s)"
+            % (r, g["sharded"], g["local_leaves"], g["compute_s"],
+               g["eval_s"], g["peak_gb"], g["launches"]["leaf"],
+               g["launches"]["leaf_shapes"], row["logdet_rel"],
+               row["sqrt_rel"], row["winv_rel"], row["sample_rel"],
+               row["grad_max_abs_vs_1rank"], grad_ok))
+        if not (grad_ok and g["sharded"] and g["local_leaves"] == 256
+                and row["logdet_rel"] <= 1e-10
+                and max(row["sqrt_rel"], row["winv_rel"],
+                        row["sample_rel"]) <= 1e-5
+                and g["launches"]["leaf"] > 0
+                and g["launches"]["leaf_B"] == [256]):
+            raise RuntimeError("parallel (g): rank %d's symmetric "
+                               "factorization disagrees or did not launch "
+                               "the leaf kernel on its leaves" % r)
+    return out
+
+
+def _p17_check_sparse_lp(ranks, ref, sparse_ref):
+    """(h): each rank's ``SparseSolver(mesh=)`` ``log_prob_fn``: float64
+    value and gradient against the one-rank iterative run (same probes,
+    1e-8 relative); float32 against phase 7's direct float64 values at
+    phase 9's estimator bounds (quadratic term 1e-3, log-determinant 3%,
+    gradient 0.15 each) through the first chain of its ``vmap`` over 2
+    chains, and every chain finite. (The ``vmap`` against unbatched calls
+    is held on the CPU, ``tests/test_torch_parallel.py``.)"""
+    one = ref["sparse_lp"]
+    n = N_DIA
+    out = {"reference_s": ref["sparse_lp_s"],
+           "reference_value_grad_s": one["seconds"]}
+    for r, res in enumerate(ranks):
+        h64, h32 = (res["_p17_sparse_log_prob"][k]
+                    for k in ("float64", "float32"))
+        row = {"ll_rel_f64": abs(h64["ll"] - one["ll"]) / abs(one["ll"]),
+               "grad_rel_f64": float(np.max(rel(h64["grad"], one["grad"])))}
+        quad = -2.0 * h32["ll"] - h32["logdet"] - n * np.log(2.0 * np.pi)
+        row["quad_rel_f32"] = float(rel(quad, sparse_ref["quad"]))
+        row["logdet_rel_f32"] = float(rel(h32["logdet"],
+                                          sparse_ref["logdet"]))
+        row["grad_rel_f32"] = rel(h32["grad"], sparse_ref["grad"]).tolist()
+        for tag, h in (("f64", h64), ("f32", h32)):
+            row[tag] = {k: h[k] for k in ("compute_s", "seconds", "peak_gb",
+                                          "launches", "rows", "sharded")}
+        row["f32"]["vmap_ll"] = h32["vmap_ll"].tolist()
+        out[r] = row
+        log("parallel (h) rank %d: SparseSolver(mesh=) log_prob_fn on %d "
+            "of n=%d rows; f64 compute %.3f s, value + gradient %.3f s "
+            "(one rank %.3f s), peak %.2f GB, ll %.10f vs one rank %.3e "
+            "(limit 1e-8), gradient %.3e (limit 1e-8); f32 compute %.3f s, "
+            "vmap of value + gradient over 2 chains %.3f s (ll %s), peak "
+            "%.2f GB; chain 0 vs direct f64: quad %.3e (limit 1e-3), logdet "
+            "%.3e (limit 3e-2), gradient %s (limit 0.15 each); launches "
+            "f64 %s, f32 %s"
+            % (r, h64["rows"], n, h64["compute_s"], h64["seconds"],
+               one["seconds"], h64["peak_gb"], h64["ll"], row["ll_rel_f64"],
+               row["grad_rel_f64"], h32["compute_s"], h32["seconds"],
+               np.array2string(h32["vmap_ll"], precision=4),
+               h32["peak_gb"], row["quad_rel_f32"], row["logdet_rel_f32"],
+               np.array2string(np.asarray(row["grad_rel_f32"]),
+                               precision=4), h64["launches"],
+               h32["launches"]))
+        if not (h64["sharded"] and h32["sharded"]
+                and row["ll_rel_f64"] <= 1e-8 and row["grad_rel_f64"] <= 1e-8
+                and row["quad_rel_f32"] <= 1e-3
+                and row["logdet_rel_f32"] <= 0.03
+                and max(row["grad_rel_f32"]) <= 0.15
+                and np.all(np.isfinite(h32["vmap_ll"]))
+                and np.all(np.isfinite(h32["vmap_grad"]))):
+            raise RuntimeError("parallel (h): rank %d's sparse log_prob_fn "
+                               "disagrees" % r)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the examples' twins on the card
+# ---------------------------------------------------------------------------
+
+# (twin, its main's arguments) in the order phase 18 runs them: every twin
+# at its default size (the examples' full width), scaling also at 10,000
+# (HODLR rank 48 and the exact banded path; the dense cross-check is the
+# example's own, below 4000 points), hyper at its --smoke iteration counts
+# on the full data (its default counts run minutes on the host-bound NUTS
+# loop); multioutput's at_scale at its default n = 10,000
+P18_RUNS = (("first", {}), ("scaling", {"n": 2000}),
+            ("scaling", {"n": 10_000}), ("multioutput", {}), ("model", {}),
+            ("mixture", {}), ("bayesopt", {}), ("hyper", {"smoke": True}),
+            ("spatial", {}))
+
+
+def _time_dia_shape(n, D, d_min, r, dt):
+    """The DIA kernel at a shape a twin launched it at, on a random band
+    of the same offsets: against the plain version (1e-12 of the largest
+    entry in float64, 1e-5 in float32) and timed beside it, the cuSPARSE
+    CSR product and the bound."""
+    import torch
+    from george_tpu_torch.ops import dia
+
+    dtype = getattr(torch, dt)
+    offsets = np.arange(d_min, d_min + D)
+    vals, diag, y = _random_band(n, offsets, r, dtype, seed=18)
+    label = "examples (18) n=%d D=%d r=%d %s" % (n, D, r, dt)
+    _, err = _check_dia(label, vals, offsets, diag, y,
+                        1e-12 if dt == "float64" else 1e-5)
+    cols = (torch.arange(n, device="cuda")[:, None]
+            + torch.as_tensor(offsets, device="cuda")[None, :])
+    A = _csr_of_band(vals, offsets, (cols >= 0) & (cols < n), diag)
+    t = {"max_abs_err": err,
+         "ms": cuda_ms(lambda: dia.dia_matvec_cuda(vals, offsets, diag, y)),
+         "plain_ms": cuda_ms(
+             lambda: dia.dia_matvec_plain(vals, offsets, diag, y)),
+         "library_ms": cuda_ms(lambda: A @ y)}
+    t["bound_ms"], t["bound_by"] = bound(
+        vals.element_size() * (n * D + n + 2 * n * r),
+        2.0 * n * (D + 1) * r, dtype)
+    log("%s: kernel %.4f ms, plain %.4f ms, cuSPARSE CSR %.4f ms, bound "
+        "%.4f ms (%s)" % (label, t["ms"], t["plain_ms"], t["library_ms"],
+                          t["bound_ms"], t["bound_by"]))
+    return t
+
+
+def phase_examples(device):
+    """Phase 18: each twin of ``george_tpu_torch.examples`` in-process
+    through its ``main`` on the card in float64, the kernels' launch
+    counts set to 0 right before it and read right after; the example's
+    own asserts are the gate. Each leaf-kernel and DIA-kernel shape a
+    twin launched is then held to the plain version and timed beside it,
+    the library call and the bound (outside the twin's count)."""
+    import importlib
+
+    import torch
+    from george_tpu_torch.ops import chol
+
+    out, checked, checked_dia = {}, {}, {}
+    for name, kw in P18_RUNS:
+        mod = importlib.import_module("george_tpu_torch.examples." + name)
+        label = name + "".join("_%s%s" % (k, v) for k, v in kw.items())
+        stop = _p17_record()
+        sync(device)
+        t0 = time.perf_counter()
+        result = mod.main(device=device, dtype=torch.float64, **kw)
+        sync(device)
+        secs = time.perf_counter() - t0
+        launches = stop()
+        out[label] = {"seconds": secs, "launches": launches}
+        if name == "spatial":
+            out[label]["weak_leaves"] = result["weak_leaves"]
+        log("examples (18) %s: %.3f s; leaf kernel launches %d (shapes %s), "
+            "DIA kernel launches %d (r %s)"
+            % (label, secs, launches["leaf"], launches["leaf_shapes"],
+               launches["dia"], launches["dia_r"]))
+        for B, m, _, dt in launches["leaf_shapes"]:
+            if (B, m, dt) in checked:
+                continue
+            A = _spd(B, m, getattr(torch, dt))
+            label = "examples (18) leaf kernel (%d, %d) %s" % (B, m, dt)
+            err = _check_chol(chol.cholesky_cuda, "chol_kernel_launches", A,
+                              1e-10 if dt == "float64" else 1e-4, label)
+            t = checked[(B, m, dt)] = dict(_time_chol(chol.cholesky_cuda,
+                                                      A), max_abs_err=err)
+            log("%s: kernel %.4f ms, plain %.4f ms, torch.linalg.cholesky "
+                "%.4f ms, bound %.4f ms (%s)" % (label, t["ms"],
+                                                t["plain_ms"],
+                                                t["library_ms"],
+                                                t["bound_ms"], t["bound_by"]))
+        for shape in launches["dia_shapes"]:
+            if shape not in checked_dia:
+                checked_dia[shape] = _time_dia_shape(*shape)
+        torch.cuda.empty_cache()
+    hier = [k for k in out if k.split("_")[0] in ("scaling", "multioutput",
+                                                  "spatial")]
+    if any(out[k]["launches"]["leaf"] == 0 for k in hier):
+        raise RuntimeError("examples (18): a hierarchical twin never "
+                           "launched the leaf kernel")
+    out["leaf_shapes_checked"] = [
+        dict(t, B=B, m=m, dtype=dt) for (B, m, dt), t in sorted(
+            checked.items())]
+    out["dia_shapes_checked"] = [
+        dict(t, n=n, D=D, r=r, dtype=dt)
+        for (n, D, _, r, dt), t in sorted(checked_dia.items())]
+    out["seconds"] = sum(v["seconds"] for v in out.values()
+                         if isinstance(v, dict))
+    log("examples (18): %d runs, %.1f s" % (len(P18_RUNS), out["seconds"]))
     return out
 
 
@@ -3221,7 +3582,7 @@ def main():
     # launches from 0 right before each of its paths
     log("parallel: starting %.1f s into the run"
         % (time.perf_counter() - t_start))
-    par = phase_parallel(device, nuts_ref)
+    par = phase_parallel(device, nuts_ref, direct["float64"])
     del nuts_ref
     mesh_b = [par["b"][r]["f64"]["launches"] for r in range(P17_RANKS)]
     dw = par["kernels"]["dia_stream_width_float64"]
@@ -3234,6 +3595,16 @@ def main():
             "under sharded_predict on the sparse solver"
             % (r, mesh_b[r]["leaf"], mesh_b[r]["leaf_B"],
                pred_sparse[r]["dia"], pred_sparse[r]["dia_r"]))
+    sym_g = [par["g"][r]["launches"] for r in range(P17_RANKS)]
+    for r in range(P17_RANKS):
+        log("parallel main path, rank %d: leaf kernel launches %d (B %s) "
+            "under HODLRSolver(mesh=, sym=True) f64"
+            % (r, sym_g[r]["leaf"], sym_g[r]["leaf_B"]))
+
+    # phase 18: the examples' twins, each with its own counts
+    log("examples: starting %.1f s into the run"
+        % (time.perf_counter() - t_start))
+    ex = phase_examples(device)
 
     log(json.dumps({"summary": {
         "build_s": build_s, "cusolver_ms": kern["cusolver_ms"],
@@ -3243,7 +3614,7 @@ def main():
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
         "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
         "lcm": lcm, "hmatrix": hm, "checkpoint": ckpt, "parallel": par,
-        "seconds": time.perf_counter() - t_start}}))
+        "examples": ex, "seconds": time.perf_counter() - t_start}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library
     t, t2 = sorted((tile["8x128"], tile["1024x64"]),
@@ -3281,6 +3652,16 @@ def main():
          "mesh_launch_B_per_rank": [b["leaf_B"] for b in mesh_b],
          "launches_in_mesh": "HODLRSolver(mesh=) f64 on 2 gloo ranks "
                              "sharing the card, each rank's own count",
+         "launches_mesh_sym_per_rank": [g["leaf"] for g in sym_g],
+         "mesh_sym_launch_B_per_rank": [g["leaf_B"] for g in sym_g],
+         "launches_examples": {k: v["launches"]["leaf"]
+                               for k, v in ex.items()
+                               if isinstance(v, dict)},
+         "examples_shapes": [
+             {k: t[k] for k in ("B", "m", "dtype", "ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by",
+                                "max_abs_err")}
+             for t in ex["leaf_shapes_checked"]],
          "ms_256x196_f64": par["kernels"]["leaf_256x196_float64"]["ms"],
          "plain_ms_256x196_f64":
              par["kernels"]["leaf_256x196_float64"]["plain_ms"],
@@ -3311,6 +3692,14 @@ def main():
          "launches_in": "sparse iterative f32 path",
          "launches_log_prob": launches_lp,
          "launches_sharded_predict_per_rank": [c["dia"] for c in pred_sparse],
+         "launches_examples": {k: v["launches"]["dia"]
+                               for k, v in ex.items()
+                               if isinstance(v, dict)},
+         "examples_shapes": [
+             {k: t[k] for k in ("n", "D", "r", "dtype", "ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by",
+                                "max_abs_err")}
+             for t in ex["dia_shapes_checked"]],
          "r_sharded_predict_per_rank": [c["dia_r"] for c in pred_sparse],
          "ms_r%d_f64" % dw: dk["ms"], "plain_ms_r%d_f64" % dw: dk["plain_ms"],
          "bound_ms_r%d_f64" % dw: dk["bound_ms"],

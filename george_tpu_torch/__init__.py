@@ -20,7 +20,9 @@ Three paths of ``george_tpu``, written in PyTorch for an NVIDIA H100:
 with the dense and trivial solvers, the ``GP`` object, and the inference
 layer (``sampling``: NUTS/HMC over batched chains, the ensemble sampler,
 ADVI, L-BFGS-B and Adam, all driven by ``GP.log_prob_fn``), checkpoints
-of sampler state (``checkpoint``) and timing spans (``diagnostics``). The
+of sampler state (``checkpoint``), timing spans (``diagnostics``),
+``parallel`` on ``torch.distributed``, and twins of the JAX package's
+examples (``george_tpu_torch.examples``, run with ``python -m``). The
 kernels on CUDA tensors are CUDA C++ written for ``sm_90a`` (``csrc/``:
 the panel-blocked leaf Cholesky and its tiled launch plan, the DIA
 matvec), built from source at first use.

@@ -16,10 +16,16 @@ autograd and with ``torch.func`` (``grad``, ``vjp``, ``jvp``, ``vmap``):
   work: the identity forward; in reverse mode each rank's rows contribute
   a part of the cotangent, so the parts are ``all_reduce``d.
 
+A third, :func:`gather_rows`, turns row-local blocks into the replicated
+whole: ``all_gather`` forward; in reverse mode the cotangent of the
+replicated whole is already the whole one, so each rank takes its own
+block of it. It brings a small row-local factor (one level of a
+hierarchical factorization) to every rank for a computation that needs all
+its rows, and gathers results leaving a sharded computation.
+
 Forward-mode tangents follow the forward maps, and under ``vmap`` a batch
-of either is one collective on the batched tensor (every rank must batch
-the same count). :func:`gather_rows` is the plain (not differentiated)
-``all_gather`` of row blocks for results leaving a sharded computation.
+of any of them is one collective on the batched tensor (every rank must
+batch the same count).
 
 Gloo groups take CUDA tensors for ``all_reduce`` and ``all_gather``, so
 ranks that share one card use gloo; the computation stays on the card.
@@ -47,14 +53,9 @@ def broadcast(t, group, src_rank=0):
     return out
 
 
-def gather_rows(t, group, dim=0):
-    """Every rank's block of ``t`` concatenated along ``dim`` in rank
-    order (blocks of equal shape)."""
-    world = dist.get_world_size(group)
-    if world == 1:
-        return t
+def _all_gather(t, group, dim):
     src = t.detach().contiguous()
-    parts = [torch.empty_like(src) for _ in range(world)]
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim)
 
@@ -103,6 +104,40 @@ class _Replicated(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, x, group):
         return _Replicated.apply(x, group), in_dims[0]
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(x, group, dim):
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        size = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        own = g.narrow(ctx.dim, dist.get_rank(ctx.group) * size, size)
+        return own, None, None
+
+    @staticmethod
+    def jvp(ctx, t, _, __):
+        return _GatherRows.apply(t, ctx.group, ctx.dim)
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, dim):
+        if in_dims[0] is None:
+            return _GatherRows.apply(x, group, dim), None
+        return _GatherRows.apply(x.movedim(in_dims[0], 0), group, dim + 1), 0
+
+
+def gather_rows(t, group, dim=0):
+    """Every rank's block of ``t`` (row-local) concatenated along ``dim``
+    in rank order (blocks of equal shape): the replicated whole."""
+    if dist.get_world_size(group) == 1:
+        return t
+    return _GatherRows.apply(t, group, dim % t.ndim)
 
 
 def sum_partials(x, group):

@@ -33,6 +33,13 @@ orthonormalized symmetric node per sibling pair and level), for prior
 draws (``apply_sqrt``), ``sym=True`` solves and the symmetric Hutchinson
 estimator.
 
+Under ``mesh=`` both factorizations split the padded rows over the ranks
+of a ``torch.distributed`` group (``HODLRStructure.set_shard``): each rank
+factors its own leaves and the levels whose sibling pairs it holds whole;
+the per-pair sums of a coarser level are reduced over the ranks, and the
+symmetric node of such a level is built on every rank from the gathered
+level factor.
+
 Points are pre-sorted host-side (``neighbors.morton_sort_samples``, on the
 kernel's ``sort_axes`` where it declares them) so off-diagonal blocks are
 numerically low-rank; the skeleton pivots are static indices chosen once
@@ -970,7 +977,7 @@ def hodlr_factor_sym(pair_fn, theta, xpad, valid, diag_pad, struct):
     ``W = L_leaf G_L ... G_1`` with each ``G_l`` block-diagonal over the
     level's sibling pairs. Per pair, with ``Utilde = W_left^{-1} C`` and
     ``Vtilde = W_right^{-1} Q`` (the skeleton factors of
-    :func:`_all_lowrank_t` with every finer factor's inverse applied), the
+    :func:`_lowrank_rows_t` with every finer factor's inverse applied), the
     node is ``I + U S U^T`` for ``U = blkdiag(Utilde, Vtilde)`` and ``S =
     [[0, I], [I, 0]]``. Each half is orthonormalized by QR (``Utilde = Qu
     Ru``), the small core ``I + [[0, Ru Rv^T], [Rv Ru^T, 0]]`` is split by
@@ -980,92 +987,116 @@ def hodlr_factor_sym(pair_fn, theta, xpad, valid, diag_pad, struct):
     is symmetric, so ``G^{-T} = G^{-1} = I + Qhat (S^{-1/2} - I)
     Qhat^T``.
 
-    Returns ``({"Lleaf", "levels": [(Qu, Qv, Msym, Minv), ...]}, logdet)``:
-    ``Qu``/``Qv`` transposed ``(c, p, s)``, ``Msym = S^{1/2} - I`` and
-    ``Minv = S^{-1/2} - I`` ``(p, 2c, 2c)``, and ``logdet = log det K``
-    from the leaf Cholesky diagonals and the cores' eigenvalues. The QR and
-    eigenvector signs cancel in ``Qhat M Qhat^T``, so ``W`` itself is
-    unique given the skeletons."""
-    n_pad, m, L = struct.n_pad, struct.m, struct.L
-    B = n_pad // m
-    xb = xpad.reshape(B, m, -1)
-    vb = valid.reshape(B, m)
-    Lleaf = _leaf_cholesky(pair_fn, theta, xb, vb, diag_pad.reshape(B, m))
+    Returns ``({"Lleaf", "levels": [(Qt, Msym, Minv), ...]}, logdet)``:
+    ``Qt`` ``(c, n_pad)`` in the row layout of the skeleton factors (``Qu``
+    on each pair's left rows, ``Qv`` on its right rows), ``Msym = S^{1/2}
+    - I`` and ``Minv = S^{-1/2} - I`` ``(p, 2c, 2c)``, and ``logdet = log
+    det K`` from the leaf Cholesky diagonals and the cores' eigenvalues.
+    The QR and eigenvector signs cancel in ``Qhat M Qhat^T``, so ``W``
+    itself is unique given the skeletons.
+
+    On a sharded structure the factors are this rank's, as in
+    :func:`hodlr_factor`: its leaves, its ``(c, nloc)`` rows of each
+    ``Qt``, and the cores of the pairs it holds whole (all ``p`` of a level
+    whose pairs span ranks, whose QR and ``eigh`` run on every rank on the
+    gathered level); ``logdet`` is the whole operator's on every rank.
+    """
+    m, L = struct.m, struct.L
+    B = struct.nloc // m
+    theta = _enter(struct, theta)
+    xb = _rows(struct, xpad).reshape(B, m, -1)
+    vb = _rows(struct, valid).reshape(B, m)
+    db = _rows(struct, _enter(struct, diag_pad)).reshape(B, m)
+    Lleaf = _leaf_cholesky(pair_fn, theta, xb, vb, db)
     logdet = 2.0 * torch.sum(
         torch.log(torch.diagonal(Lleaf, dim1=-2, dim2=-1))
     )
-    if not L:
-        return {"Lleaf": Lleaf, "levels": []}, logdet
-
-    # U holds C on each pair's left block, V holds Q on its right block;
-    # both take the same W^{-1} sweep: the leaf solve now, each G^{-1} as
-    # it is created (fine to coarse)
-    UV = []
-    for lev, (Ct, Qt) in zip(
-        struct.levels, _all_lowrank_t(pair_fn, theta, xpad, valid, struct)
-    ):
-        c = lev["c"]
-        zero = torch.zeros_like(Ct)
-        UV.append(torch.stack([Ct, zero], dim=2).reshape(c, n_pad))
-        UV.append(torch.stack([zero, Qt], dim=2).reshape(c, n_pad))
-    widths = [X.shape[0] for X in UV]
-    UV = list(torch.split(
-        _leaf_tri_solve_t(Lleaf, torch.cat(UV, dim=0), False), widths,
-        dim=0))
-
-    dtype, dev = diag_pad.dtype, diag_pad.device
-    floor = 100.0 * torch.finfo(dtype).eps
+    logdet_shared = None    # the cores of levels whose pairs span ranks
     levels_out = [None] * L
+    if L:
+        # C (left rows) and Q (right rows) of a level take the same W^{-1}
+        # sweep, the leaf solve now and each G^{-1} as it is created (fine
+        # to coarse): a finer node never mixes the two halves of a coarser
+        # pair, so one row-layout factor carries both
+        Zs = _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)
+        widths = [Z.shape[0] for Z in Zs]
+        T = list(torch.split(
+            _leaf_tri_solve_t(Lleaf, torch.cat(Zs, dim=0), False), widths,
+            dim=0))
+    floor = 100.0 * torch.finfo(diag_pad.dtype).eps
     for li in range(L - 1, -1, -1):   # li = level index (0 = root split)
-        lev = struct.levels[li]
-        s, p, c = lev["s"], lev["p"], lev["c"]
-        Ub = UV[2 * li].reshape(c, p, 2, s)[:, :, 0]        # (c, p, s)
-        Vb = UV[2 * li + 1].reshape(c, p, 2, s)[:, :, 1]
-        Qu, Ru = torch.linalg.qr(Ub.permute(1, 2, 0))       # (p, s, c)
-        Qv, Rv = torch.linalg.qr(Vb.permute(1, 2, 0))
-        cross = Ru @ Rv.mT                                  # Ru Rv^T
-        zero = torch.zeros((p, c, c), dtype=dtype, device=dev)
-        eye2 = torch.eye(2 * c, dtype=dtype, device=dev)
-        core = eye2 + torch.cat(
-            [torch.cat([zero, cross], dim=-1),
-             torch.cat([cross.mT, zero], dim=-1)], dim=-2)
-        evals, evecs = torch.linalg.eigh(core)
-        evals = torch.clamp_min(evals, floor)
-        # det G = det S^{1/2}, and log det K = 2 log det W
-        logdet = logdet + torch.sum(torch.log(evals))
-        sq = torch.sqrt(evals)
-        Msym = (evecs * sq[:, None, :]) @ evecs.mT - eye2
-        Minv = (evecs / sq[:, None, :]) @ evecs.mT - eye2
-        Qu = Qu.permute(2, 0, 1).contiguous()               # (c, p, s)
-        Qv = Qv.permute(2, 0, 1).contiguous()
-        levels_out[li] = (Qu, Qv, Msym, Minv)
+        Qt, Msym, Minv, ld = _sym_node(struct, li, T[li], floor)
+        if struct.views[li]["whole"]:
+            logdet = logdet + ld
+        else:
+            logdet_shared = ld + (
+                0.0 if logdet_shared is None else logdet_shared)
+        levels_out[li] = (Qt, Msym, Minv)
         if li > 0:
-            # G^{-1} hits both tilde factors of every coarser level
-            X = _sym_apply_t(Qu, Qv, Minv, p, s, c,
-                             torch.cat(UV[:2 * li], dim=0))
-            UV[:2 * li] = torch.split(X, widths[:2 * li], dim=0)
+            # G^{-1} hits the tilde factors of every coarser level
+            X = _sym_apply_t(struct, li, Qt, Minv, torch.cat(T[:li], dim=0))
+            T[:li] = torch.split(X, widths[:li], dim=0)
 
+    logdet = _rowsum(struct, logdet)
+    if logdet_shared is not None:
+        logdet = logdet + logdet_shared
     return {"Lleaf": Lleaf, "levels": levels_out}, logdet
 
 
-def _sym_apply_t(Qu, Qv, M, p, s, c, Xt):
-    """Apply the symmetric node ``I + Qhat M Qhat^T`` (block-diagonal per
-    pair, ``Qhat = blkdiag(Qu, Qv)``, both ``(c, p, s)``) to transposed
-    ``Xt (k, n_pad)``."""
-    k = Xt.shape[0]
-    Xb = Xt.reshape(k, p, 2, s)
-    top = torch.einsum("cps,kps->pck", Qu, Xb[:, :, 0])
-    bot = torch.einsum("cps,kps->pck", Qv, Xb[:, :, 1])
-    y = torch.einsum("pcd,pdk->pck", M, torch.cat([top, bot], dim=1))
-    add_l = torch.einsum("cps,pck->kps", Qu, y[:, :c])
-    add_r = torch.einsum("cps,pck->kps", Qv, y[:, c:])
-    return (Xb + torch.stack([add_l, add_r], dim=2)).reshape(Xt.shape)
+def _sym_node(struct, li, Tt, floor):
+    """The symmetric node of level ``li`` from its tilde factors ``Tt``
+    (``(c, nloc)``, row layout): ``(Qt, Msym, Minv, logdet)``, ``logdet``
+    the sum of the log eigenvalues over the level's pairs. A level whose
+    pairs span ranks is gathered whole (``c x n_pad``, no more than one
+    level factor) and factored on every rank; each keeps its rows of
+    ``Qt``."""
+    v, lev = struct.views[li], struct.levels[li]
+    s, c = lev["s"], lev["c"]
+    p = v["np"]
+    if not v["whole"]:
+        Tt = struct.shard.gather(Tt, dim=1)
+        p = lev["p"]
+    Tb = Tt.reshape(c, p, 2, s)
+    Qu, Ru = torch.linalg.qr(Tb[:, :, 0].permute(1, 2, 0))   # (p, s, c)
+    Qv, Rv = torch.linalg.qr(Tb[:, :, 1].permute(1, 2, 0))
+    cross = Ru @ Rv.mT                                      # Ru Rv^T
+    dtype, dev = Tt.dtype, Tt.device
+    zero = torch.zeros((p, c, c), dtype=dtype, device=dev)
+    eye2 = torch.eye(2 * c, dtype=dtype, device=dev)
+    core = eye2 + torch.cat(
+        [torch.cat([zero, cross], dim=-1),
+         torch.cat([cross.mT, zero], dim=-1)], dim=-2)
+    evals, evecs = torch.linalg.eigh(core)
+    evals = torch.clamp_min(evals, floor)
+    sq = torch.sqrt(evals)
+    Msym = (evecs * sq[:, None, :]) @ evecs.mT - eye2
+    Minv = (evecs / sq[:, None, :]) @ evecs.mT - eye2
+    Qt = torch.stack([Qu, Qv], dim=1).permute(3, 0, 1, 2).reshape(
+        c, p * 2 * s)
+    if not v["whole"]:
+        Qt = _enter(struct, Qt)[:, struct.row0:struct.row0 + struct.nloc]
+    # det G = det S^{1/2}, and log det K = 2 log det W
+    return Qt, Msym, Minv, torch.sum(torch.log(evals))
+
+
+def _sym_apply_t(struct, li, Qt, M, Xt):
+    """Apply the symmetric node ``I + Qhat M Qhat^T`` of level ``li``
+    (block-diagonal per pair, ``Qhat = blkdiag(Qu, Qv)`` in the row layout
+    ``Qt``) to transposed ``Xt (k, nloc)``; the per-pair ``Qhat^T X`` of
+    a level whose pairs span ranks is reduced over them
+    (:func:`_half_dots`)."""
+    c = struct.levels[li]["c"]
+    D = _half_dots(struct, li, Qt, Xt)          # [Qu^T x_left, Qv^T x_right]
+    y = torch.einsum("pcd,pdk->pck", M, torch.cat([D[:, 0], D[:, 1]], dim=1))
+    return Xt + _half_apply(struct, li, Qt,
+                            torch.stack([y[:, :c], y[:, c:]], dim=1))
 
 
 def _sqrt_matvec_t(sym_factors, struct, Xt, transpose=False):
-    """``(W X)^T`` or ``(W^T X)^T`` on transposed ``Xt (k, n_pad)``.
-    ``W = L G_L ... G_1``: the root node first and the leaf factor last;
-    the transpose takes ``L^T`` first and the nodes fine to coarse."""
+    """``(W X)^T`` or ``(W^T X)^T`` on transposed ``Xt (k, n_pad)`` (this
+    rank's ``nloc`` rows on a sharded structure). ``W = L G_L ... G_1``:
+    the root node first and the leaf factor last; the transpose takes
+    ``L^T`` first and the nodes fine to coarse."""
     Lleaf = sym_factors["Lleaf"]
     L = len(struct.levels)
     if transpose:
@@ -1074,9 +1105,8 @@ def _sqrt_matvec_t(sym_factors, struct, Xt, transpose=False):
     else:
         order = range(L)
     for li in order:
-        lev = struct.levels[li]
-        Qu, Qv, Msym, _ = sym_factors["levels"][li]
-        Xt = _sym_apply_t(Qu, Qv, Msym, lev["p"], lev["s"], lev["c"], Xt)
+        Qt, Msym, _ = sym_factors["levels"][li]
+        Xt = _sym_apply_t(struct, li, Qt, Msym, Xt)
     if not transpose:
         Xt = _leaf_mul_t(Lleaf, Xt, False)
     return Xt
@@ -1095,9 +1125,8 @@ def _sqrt_solve_t(sym_factors, struct, Xt, transpose=False):
         Xt = _leaf_tri_solve_t(Lleaf, Xt, False)
         order = range(L - 1, -1, -1)
     for li in order:
-        lev = struct.levels[li]
-        Qu, Qv, _, Minv = sym_factors["levels"][li]
-        Xt = _sym_apply_t(Qu, Qv, Minv, lev["p"], lev["s"], lev["c"], Xt)
+        Qt, _, Minv = sym_factors["levels"][li]
+        Xt = _sym_apply_t(struct, li, Qt, Minv, Xt)
     if transpose:
         Xt = _leaf_tri_solve_t(Lleaf, Xt, True)
     return Xt
@@ -1105,7 +1134,8 @@ def _sqrt_solve_t(sym_factors, struct, Xt, transpose=False):
 
 def hodlr_sqrt_matvec(sym_factors, struct, X, transpose=False):
     """``W X`` (or ``W^T X``) through the symmetric cascade. ``X``:
-    ``(n_pad,)`` or ``(n_pad, k)``."""
+    ``(n_pad,)`` or ``(n_pad, k)`` (this rank's ``nloc`` rows on a sharded
+    structure)."""
     Xt, squeeze = _as_t(X)
     return _from_t(_sqrt_matvec_t(sym_factors, struct, Xt, transpose),
                    squeeze)
@@ -1113,7 +1143,8 @@ def hodlr_sqrt_matvec(sym_factors, struct, X, transpose=False):
 
 def hodlr_sqrt_solve(sym_factors, struct, X, transpose=False):
     """``W^{-1} X`` (or ``W^{-T} X``) through the symmetric cascade;
-    ``K^{-1} = W^{-T} W^{-1}``. ``X``: ``(n_pad,)`` or ``(n_pad, k)``."""
+    ``K^{-1} = W^{-T} W^{-1}``. ``X``: ``(n_pad,)`` or ``(n_pad, k)`` (this
+    rank's ``nloc`` rows on a sharded structure)."""
     Xt, squeeze = _as_t(X)
     return _from_t(_sqrt_solve_t(sym_factors, struct, Xt, transpose),
                    squeeze)
@@ -1165,11 +1196,11 @@ class HODLRSolver(object):
         ranks; a coarser level's per-pair sums are ``all_reduce``d, and
         the log-determinant and results are whole on every rank. The
         likelihood, its exact and Hutchinson gradients, ``log_prob_fn``
-        (under the samplers' ``vmap`` too), solves, matvecs and
-        ``predict`` run sharded; when the leaf count does not split over
-        the ranks it warns and runs unsharded. The symmetric
-        factorization (``sym=True``, ``apply_sqrt``, ``GP.sample``) is not
-        sharded and raises ``NotImplementedError`` under a mesh.
+        (under the samplers' ``vmap`` too), solves, matvecs, ``predict``
+        and the symmetric factorization (``sym=True``, ``apply_sqrt``,
+        ``GP.sample``, ``apply_inverse_sym_W(_transpose)``) run sharded;
+        when the leaf count does not split over the ranks it warns and
+        runs unsharded.
     """
 
     matrix_free = False
@@ -1192,9 +1223,6 @@ class HODLRSolver(object):
         if mesh is not None and not hasattr(mesh, "get_group"):
             raise TypeError("mesh must be a torch.distributed DeviceMesh "
                             "(george_tpu_torch.parallel.chain_mesh)")
-        if mesh is not None and sym:
-            raise NotImplementedError(
-                "HODLRSolver(sym=True) does not shard over a mesh")
         self.mesh = mesh
         self._shard = None
         self.kernel = kernel
@@ -1649,10 +1677,6 @@ class HODLRSolver(object):
     def _ensure_sym(self):
         """(Re)build the symmetric factors ``K = W W^T`` lazily, keyed on
         the kernel's current parameter vector."""
-        if self._shard is not None:
-            raise NotImplementedError(
-                "the symmetric HODLR factorization (apply_sqrt, GP.sample, "
-                "the W^{-1} applications) does not shard over a mesh")
         theta = np.array(self.kernel.parameter_vector)
         if self._sym_factors is None or self._sym_theta is None or (
                 not np.array_equal(theta, self._sym_theta)):
@@ -1673,9 +1697,11 @@ class HODLRSolver(object):
         R = r[None, :] if squeeze else r               # (size, n)
         Z = np.zeros((R.shape[0], st.n_pad))
         Z[:, :st.n] = R[:, self._perm]
+        Z = _rows(st, self._tensor(Z).T).T
         with torch.no_grad():
-            out = _sqrt_matvec_t(self._sym_factors, st, self._tensor(Z))
-        out = out[:, :st.n].cpu().numpy().astype(np.float64)
+            out = _sqrt_matvec_t(self._sym_factors, st, Z)
+        out = self._gather(out.T).T[:, :st.n].cpu().numpy().astype(
+            np.float64)
         res = np.empty_like(out)
         res[:, self._perm] = out
         return res[0] if squeeze else res
@@ -1685,8 +1711,9 @@ class HODLRSolver(object):
         Y, squeeze = self._pad_rhs(y)
         fn = _sqrt_solve_t if solve else _sqrt_matvec_t
         with torch.no_grad():
-            Z = fn(self._sym_factors, self._struct, Y.T, transpose)
-        return self._unpad(Z.T, squeeze)
+            Z = fn(self._sym_factors, self._struct, _rows(self._struct, Y).T,
+                   transpose)
+        return self._unpad(self._gather(Z.T), squeeze)
 
     def apply_inverse_sym_W(self, y):
         """``W^{-1} y``; the columns of a matrix ``y`` independently."""

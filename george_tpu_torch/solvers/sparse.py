@@ -27,7 +27,8 @@ is not taken) are padded to a multiple of the mesh size and each rank
 holds its block of them, its rows of every vector and of the entry table;
 the coordinates are replicated. Each matvec gathers the vector from all
 ranks and computes its own rows, and the CG, Lanczos and gradient sums
-are reduced over the ranks.
+are reduced over the ranks; the adjoints of the fused likelihood read the
+gathered solutions at the global neighbour ids and keep their own rows.
 
 The fused likelihood behind ``GP.log_prob_fn`` and the samplers
 (``SparseSolver.loglike_fn``) is the exact banded one on the direct path;
@@ -43,7 +44,7 @@ from ..neighbors import (
     knn_matrix_to_csr, normalize_nns, radius_neighbors_csr,
 )
 from ..ops.dia import DiaOperator, dia_matvec
-from ..parallel.collectives import row_shard
+from ..parallel.collectives import replicated, row_shard
 from .banded import (
     band_block_size, band_blocks, banded_cholesky, banded_loglike_fn,
     banded_solve, banded_sqrt_matvec,
@@ -296,6 +297,22 @@ def _per_member(apply, info, in_dims, args):
     return torch.stack(outs), 0
 
 
+class _Iteration(object):
+    """What :class:`_CgSolve` and :class:`_SlqLogdet` use besides their
+    tensors: ``apply(vals, Y, diag) = (K + diag) Y`` on the rows they hold,
+    CG's tolerance and iteration cap, SLQ's Lanczos steps, the operator's
+    size ``n``, and from the ``RowShard`` of a row-sharded layout
+    (``None``: the rows are all here) ``rowsum``, completing a column sum
+    over the ranks, and ``whole``, every rank's rows of a vector in the
+    order the neighbour ids index."""
+
+    def __init__(self, apply, tol, maxiter, num_steps, n, shard=None):
+        self.apply, self.tol, self.maxiter = apply, tol, maxiter
+        self.num_steps, self.n = num_steps, n
+        self.rowsum = None if shard is None else shard.sum
+        self.whole = (lambda t: t) if shard is None else shard.gather
+
+
 class _CgSolve(torch.autograd.Function):
     """``z = (K + diag)^{-1} b`` by Jacobi-preconditioned CG through the
     solver's fixed-table apply, differentiable in the value table, the
@@ -303,27 +320,30 @@ class _CgSolve(torch.autograd.Function):
     ``cg_diff_solve``, JAX's ``custom_linear_solve``): the backward is one
     more CG solve ``w = K^{-1} z_bar``, then ``b_bar = w``,
     ``vals_bar[i, j] = -w_i z[nbr[i, j]]`` on the masked slots and
-    ``diag_bar = -w * z``.
+    ``diag_bar = -w * z``. On a row-sharded layout every tensor holds this
+    rank's rows, and ``z[nbr]`` reads the gathered ``z`` (the neighbour
+    ids are global).
 
-    Arguments: ``(vals, diag, b, pdiag, nbr, mask, apply, tol, maxiter)``,
-    with ``apply(vals, Y, diag) = (K + diag) Y`` and ``pdiag`` the
-    preconditioner (not differentiated: the solution does not depend on
-    it). Under ``torch.func.vmap`` the batch members run one after another:
-    CG's stopping test reads the host and the DIA kernel takes plain
-    tensors, so chains are not batched into one launch here."""
+    Arguments: ``(vals, diag, b, pdiag, nbr, mask, it)``, with ``it`` an
+    :class:`_Iteration` and ``pdiag`` the preconditioner (not
+    differentiated: the solution does not depend on it). Under
+    ``torch.func.vmap`` the batch members run one after another: CG's
+    stopping test reads the host and the DIA kernel takes plain tensors,
+    so chains are not batched into one launch here."""
 
     @staticmethod
-    def forward(vals, diag, b, pdiag, nbr, mask, apply, tol, maxiter):
+    def forward(vals, diag, b, pdiag, nbr, mask, it):
         vals, diag = vals.contiguous(), diag.contiguous()
-        z, _ = cg_solve(lambda Y: apply(vals, Y, diag), b.contiguous(),
-                        pdiag, tol=tol, maxiter=maxiter)
+        z, _ = cg_solve(lambda Y: it.apply(vals, Y, diag), b.contiguous(),
+                        pdiag, tol=it.tol, maxiter=it.maxiter,
+                        rowsum=it.rowsum)
         return z
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        vals, diag, _, pdiag, nbr, mask, apply, tol, maxiter = inputs
+        vals, diag, _, pdiag, nbr, mask, it = inputs
         ctx.save_for_backward(vals, diag, pdiag, nbr, mask, output)
-        ctx.rest = (apply, tol, maxiter)
+        ctx.it = it
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -332,9 +352,9 @@ class _CgSolve(torch.autograd.Function):
     @staticmethod
     def backward(ctx, z_bar):
         vals, diag, pdiag, nbr, mask, z = ctx.saved_tensors
-        w = _CgSolve.apply(vals, diag, z_bar, pdiag, nbr, mask, *ctx.rest)
-        vals_bar = -w[:, None] * z[nbr] * mask
-        return vals_bar, -w * z, w, None, None, None, None, None, None
+        w = _CgSolve.apply(vals, diag, z_bar, pdiag, nbr, mask, ctx.it)
+        vals_bar = -w[:, None] * ctx.it.whole(z)[nbr] * mask
+        return vals_bar, -w * z, w, None, None, None, None
 
 
 class _SlqLogdet(torch.autograd.Function):
@@ -345,23 +365,25 @@ class _SlqLogdet(torch.autograd.Function):
     ``diag_bar = g * mean_k(V * K^{-1} V)`` and ``vals_bar[i, j] = g *
     mean_k V[i, k] (K^{-1} V)[nbr[i, j], k]`` on the masked slots,
     accumulated probe by probe so that about two value tables are live.
+    On a row-sharded layout ``V`` holds this rank's rows, the Lanczos sums
+    are reduced over the ranks and ``(K^{-1} V)[nbr]`` reads the gathered
+    block.
 
-    Arguments: ``(vals, diag, V, pdiag, nbr, mask, apply, num_steps, tol,
-    maxiter)``. Under ``torch.func.vmap`` the batch members run one after
-    another (the backward's CG reads the host)."""
+    Arguments: ``(vals, diag, V, pdiag, nbr, mask, it)`` (see
+    :class:`_CgSolve`). Under ``torch.func.vmap`` the batch members run
+    one after another (the backward's CG reads the host)."""
 
     @staticmethod
-    def forward(vals, diag, V, pdiag, nbr, mask, apply, num_steps, tol,
-                maxiter):
+    def forward(vals, diag, V, pdiag, nbr, mask, it):
         vals, diag = vals.contiguous(), diag.contiguous()
-        return slq_logdet(lambda Y: apply(vals, Y, diag), V.mT,
-                          num_steps=num_steps)
+        return slq_logdet(lambda Y: it.apply(vals, Y, diag), V.mT,
+                          num_steps=it.num_steps, rowsum=it.rowsum, n=it.n)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        vals, diag, V, pdiag, nbr, mask, apply, _, tol, maxiter = inputs
+        vals, diag, V, pdiag, nbr, mask, it = inputs
         ctx.save_for_backward(vals, diag, V, pdiag, nbr, mask)
-        ctx.rest = (apply, tol, maxiter)
+        ctx.it = it
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -370,14 +392,15 @@ class _SlqLogdet(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         vals, diag, V, pdiag, nbr, mask = ctx.saved_tensors
-        KinvV = _CgSolve.apply(vals, diag, V, pdiag, nbr, mask, *ctx.rest)
+        KinvV = _CgSolve.apply(vals, diag, V, pdiag, nbr, mask, ctx.it)
         num_probes = V.shape[1]
         diag_bar = g * torch.mean(V * KinvV, dim=1)
+        KinvV = ctx.it.whole(KinvV)
         acc = torch.zeros_like(vals)
         for k in range(num_probes):
             acc = acc + V[:, k, None] * KinvV[:, k][nbr]
         vals_bar = g * (acc / num_probes) * mask
-        return (vals_bar, diag_bar) + (None,) * 8
+        return (vals_bar, diag_bar) + (None,) * 5
 
 
 class SparseSolver(object):
@@ -409,8 +432,9 @@ class SparseSolver(object):
         (``parallel.chain_mesh()``) to split the rows over; every rank
         runs the same calls with the same data and gets whole results.
         The iterative path only (``direct=True`` raises); the likelihood,
-        its gradient, solves, matvecs and ``apply_sqrt`` run sharded, and
-        ``loglike_fn`` (``GP.log_prob_fn``) raises ``NotImplementedError``.
+        its gradient, solves, matvecs, ``apply_sqrt`` and ``loglike_fn``
+        (``GP.log_prob_fn``, under the samplers' ``vmap`` too) run
+        sharded.
     """
 
     matrix_free = True
@@ -472,13 +496,14 @@ class SparseSolver(object):
         """Column sums over the rows, completed over the mesh's ranks."""
         return x if self._shard is None else self._shard.sum(x)
 
-    def _local(self, Y):
-        """This rank's rows of ``Y`` (``(n, ...)``, every row): zero rows
-        pad it to the mesh's multiple first."""
+    def _local(self, Y, fill=0.0):
+        """This rank's rows of ``Y`` (``(n, ...)``, every row): rows of
+        ``fill`` pad it to the mesh's multiple first."""
         if self._shard is None:
             return Y
         if self._pad_rows:
-            Y = torch.cat([Y, Y.new_zeros((self._pad_rows,) + Y.shape[1:])])
+            Y = torch.cat([Y, Y.new_full((self._pad_rows,) + Y.shape[1:],
+                                         fill)])
         a, b = self._shard.block(Y.shape[0])
         return Y[a:b]
 
@@ -673,30 +698,35 @@ class SparseSolver(object):
         optimizers and samplers consume — largely cancel its noise. The CG
         preconditioner is the self-slot entry of the table at ``theta`` plus
         ``diag`` (the masked-valid self slot: boundary rows of a band also
-        carry clipped, masked slots that point at the row)."""
+        carry clipped, masked slots that point at the row). Under ``mesh=``
+        every rank evaluates its rows of the table and of the adjoints, and
+        the value and its gradient are whole on every rank."""
         if self._direct_loglike is not None:
             return self._direct_loglike
-        if self._shard is not None:
-            raise NotImplementedError(
-                "SparseSolver.loglike_fn (GP.log_prob_fn) does not shard "
-                "over a mesh; compute the GP without mesh= for the "
-                "samplers")
-        n = self._x.shape[0]
-        rows = torch.arange(n, device=self.device)[:, None]
+        n, shard = self._n, self._shard
+        rows = torch.arange(self._nbr.shape[0], device=self.device)[:, None]
+        if shard is not None:
+            rows = rows + shard.block(n + self._pad_rows)[0]
         self_slot = torch.argmax(((self._nbr == rows) & self._mask).to(
             torch.int8), dim=1)[:, None]
-        probes = self._probe_block(self.probes, self.seed)
-        nbr, mask, apply = self._nbr, self._mask, self._apply
-        cg = (apply, self._eff_tol, self.maxiter)
+        probes = self._local(self._probe_block(self.probes, self.seed))
+        nbr, mask = self._nbr, self._mask
+        it = _Iteration(self._apply, self._eff_tol, self.maxiter,
+                        self.num_steps, n, shard)
         log_2pi = float(np.log(2.0 * np.pi))
 
+        def enter(t):
+            """A replicated input as it enters this rank's rows."""
+            return t if shard is None else replicated(t, shard.group)
+
         def loglike(theta_k, diag, r):
-            vals = self._values(theta_k)
+            vals = self._values(enter(theta_k))
+            diag = self._local(enter(diag), fill=1.0)
+            r = self._local(enter(r))
             pdiag = (vals.gather(1, self_slot)[:, 0] + diag).detach()
-            z = _CgSolve.apply(vals, diag, r, pdiag, nbr, mask, *cg)
-            ld = _SlqLogdet.apply(vals, diag, probes, pdiag, nbr, mask,
-                                  apply, self.num_steps, *cg[1:])
-            return -0.5 * (torch.dot(r, z) + ld + n * log_2pi)
+            z = _CgSolve.apply(vals, diag, r, pdiag, nbr, mask, it)
+            ld = _SlqLogdet.apply(vals, diag, probes, pdiag, nbr, mask, it)
+            return -0.5 * (self._rowsum(torch.dot(r, z)) + ld + n * log_2pi)
 
         return loglike
 

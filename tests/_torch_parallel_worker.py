@@ -81,6 +81,9 @@ def sparse_mesh_problem(n=301, seed=0):
 
 
 SPARSE_MESH_KW = {"num_probes": 64, "num_steps": 40, "direct": False}
+# the chains of the sparse log_prob scenario: the computed parameters and
+# a step away from them
+SPARSE_LOG_PROB_SHIFTS = [[0.0, 0.0, 0.0], [0.1, -0.05, 0.05]]
 HODLR_MESH_KW = {"min_size": 64, "rank": 24}
 HODLR_PREDICT_KW = {"min_size": 64, "rank": 48}
 
@@ -262,7 +265,7 @@ def scenario_hodlr_mesh(mesh, inputs):
     """``HODLRSolver(mesh=)``: with the JAX package's pivots (against its
     unsharded GP in the parent), with the port's own ACA pivots against
     the port's unsharded GP, the Hutchinson gradient, ``log_prob_fn``
-    under the samplers' ``vmap`` and the refusals."""
+    under the samplers' ``vmap`` and a leaf count that does not split."""
     from george_tpu_torch import GP, HODLRSolver
     import george_tpu_torch as tgt
 
@@ -326,17 +329,6 @@ def scenario_hodlr_mesh(mesh, inputs):
         g, v = torch.func.vmap(torch.func.grad_and_value(lp))(thetas)
         vg[tag] = (g.detach().numpy(), v.detach().numpy())
     out["log_prob_vmap"] = vg
-    refusals = {}
-    try:
-        GP(K(), solver=HODLRSolver, device=DEV, sym=True,
-           mesh=mesh).compute(x, yerr)
-    except NotImplementedError:
-        refusals["sym"] = True
-    try:
-        gp.sample()
-    except NotImplementedError:
-        refusals["sample"] = True
-    out["refusals"] = refusals
     # a leaf count that does not split over the ranks: warns, unsharded
     import warnings
 
@@ -352,9 +344,154 @@ def scenario_hodlr_mesh(mesh, inputs):
     return out
 
 
+def sym_rows():
+    """The rows ``apply_sqrt`` transports and the columns the ``W^{-1}``
+    applications take in the symmetric scenario."""
+    rng = np.random.default_rng(23)
+    n = len(hodlr_mesh_problem()[0])
+    return rng.standard_normal((8, n)), rng.standard_normal((n, 3))
+
+
+SAMPLE_SEED = 31
+
+
+def _sym_surface(gp, y, t):
+    """What the symmetric scenario holds of a ``sym=True`` GP."""
+    s = gp.solver
+    R, Y = sym_rows()
+    mu, var = gp.predict(y, t, return_var=True)
+    np.random.seed(SAMPLE_SEED)
+    return {"ll": gp.log_likelihood(y), "logdet": s.log_determinant,
+            "grad": gp.grad_log_likelihood(y), "mu": mu, "var": var,
+            "sqrt": s.apply_sqrt(R), "winv": s.apply_inverse_sym_W(Y),
+            "winvt": s.apply_inverse_sym_W_transpose(Y),
+            "sample": gp.sample(), "sharded": s._shard is not None,
+            "leaves": s._factors["Lleaf"].shape[0]}
+
+
+def _sym_functions(gp, y):
+    """Reverse mode and ``vmap`` through :func:`hodlr_factor_sym` on the
+    solver's structure (sharded or not): ``f(theta) = r^T W^{-T} W^{-1} r
+    + log det K`` and its gradient at the solver's theta and, in one
+    ``vmap``, at two shifted thetas. A level whose pairs span ranks
+    reaches theta through ``gather_rows``. (At the scenario's rank 24 the
+    smallest coupling singular values round ``1 +- sigma`` to equal core
+    eigenvalues, where ``eigh``'s derivative is not defined; the caller
+    uses rank 8.)"""
+    from george_tpu_torch.solvers import hodlr as TH
+
+    s, st = gp.solver, gp.solver._struct
+    r = np.zeros(st.n_pad)
+    r[:st.n] = (y - gp._call_mean(gp._x))[s._perm]
+    r_loc = TH._rows(st, s._tensor(r))
+    pair = gp.kernel.pair_fn
+
+    def f(theta):
+        fac, ld = TH.hodlr_factor_sym(pair, theta, s._xpad, s._valid,
+                                      s._diag_pad, st)
+        w = TH.hodlr_sqrt_solve(fac, st, r_loc)
+        return TH._rowsum(st, torch.dot(w, w)) + ld
+
+    theta = s._theta
+    thetas = theta[None, :] + 0.05 * torch.arange(
+        2, dtype=theta.dtype)[:, None]
+    g, v = torch.func.grad_and_value(f)(theta)
+    gb, vb = torch.func.vmap(torch.func.grad_and_value(f))(thetas)
+    return {"value": float(v), "grad": g.numpy(), "vmap_value": vb.numpy(),
+            "vmap_grad": gb.numpy()}
+
+
+def scenario_gather_rows(mesh, inputs):
+    """``gather_rows``'s adjoints: ``f(X) = sum(w * X^3)`` of the gathered
+    rows, its gradient in this rank's block, its ``jvp`` and its ``vmap``
+    over a batch of blocks, with the whole-array results computed here
+    beside them."""
+    from george_tpu_torch.parallel.collectives import gather_rows
+
+    group, world, rank = mesh.get_group(), mesh.size(), mesh.get_local_rank()
+    rng = np.random.default_rng(9)
+    X = torch.as_tensor(rng.standard_normal((2, 4 * world, 3)))
+    w = torch.as_tensor(rng.standard_normal((4 * world, 3)))
+    T = torch.as_tensor(rng.standard_normal((4 * world, 3)))
+    own = slice(4 * rank, 4 * (rank + 1))
+
+    def f(xl):
+        return torch.sum(w * gather_rows(xl, group) ** 3)
+
+    def f_whole(x):
+        return torch.sum(w * x ** 3)
+
+    g = torch.func.grad(f)(X[0, own])
+    _, dv = torch.func.jvp(f, (X[0, own],), (T[own],))
+    vb = torch.func.vmap(f)(X[:, own])
+    return {"grad": (g.numpy(), torch.func.grad(f_whole)(X[0])[own].numpy()),
+            "jvp": (float(dv),
+                    float(torch.func.jvp(f_whole, (X[0],), (T,))[1])),
+            "vmap": (vb.numpy(), torch.func.vmap(f_whole)(X).numpy())}
+
+
+def scenario_hodlr_mesh_sym(mesh, inputs):
+    """``HODLRSolver(mesh=, sym=True)`` and the unsharded port's: on the
+    JAX package's pivots the surface of :func:`_sym_surface` and the
+    symmetric Hutchinson gradient; at rank 8 on the port's own pivots
+    (rank 0's) :func:`_sym_functions`."""
+    from george_tpu_torch import GP, HODLRSolver
+    import george_tpu_torch as tgt
+
+    K = kernels_for(tgt)["hodlr_mesh"]
+    x, y, yerr, t = hodlr_mesh_problem()
+    out = {}
+    undo = _install_pivots(_levels(inputs, "piv_hodlr_mesh"))
+    try:
+        for tag, kw in (("one", {}), ("sharded", {"mesh": mesh})):
+            gp = GP(K(), solver=HODLRSolver, device=DEV, sym=True,
+                    **HODLR_MESH_KW, **kw)
+            gp.compute(x, yerr)
+            out[tag] = _sym_surface(gp, y, t)
+            gp = GP(K(), solver=HODLRSolver, device=DEV, sym=True,
+                    grad_mode="hutchinson", **HODLR_MESH_KW, **kw)
+            gp.compute(x, yerr)
+            out[tag]["hutchinson"] = gp.grad_log_likelihood(y)
+    finally:
+        undo()
+    for tag, kw in (("one", {}), ("sharded", {"mesh": mesh})):
+        gp = GP(K(), solver=HODLRSolver, device=DEV, sym=True, min_size=64,
+                rank=8, **kw)
+        gp.compute(x, yerr)
+        out[tag]["functions"] = _sym_functions(gp, y)
+    return out
+
+
+def scenario_sparse_mesh_log_prob(mesh, inputs):
+    """``SparseSolver(mesh=).loglike_fn`` through ``GP.log_prob_fn`` with
+    the JAX package's probes, sharded and on one rank: value and gradient
+    at the computed parameters and a step away (``loop``), and, sharded,
+    ``vmap`` over the 2 chains."""
+    from george_tpu_torch import GP, SparseSolver
+    import george_tpu_torch as tgt
+
+    x, y, yerr = sparse_mesh_problem()
+    K = kernels_for(tgt)["sparse_mesh"]
+    out = {}
+    for tag, kw in (("one", {}), ("sharded", {"mesh": mesh})):
+        gp = GP(K(), solver=SparseSolver, device=DEV, **SPARSE_MESH_KW,
+                probes=inputs["sparse_probes"], **kw)
+        gp.compute(x, yerr)
+        lp = gp.log_prob_fn(x, y, yerr)
+        thetas = torch.as_tensor(gp.get_parameter_vector())[None, :] + (
+            torch.as_tensor(SPARSE_LOG_PROB_SHIFTS))
+        loop = [torch.func.grad_and_value(lp)(th) for th in thetas]
+        out[tag] = {"value": np.array([float(v) for _, v in loop]),
+                    "grad": np.stack([g.numpy() for g, _ in loop]),
+                    "sharded": gp.solver._shard is not None}
+    gb, vb = torch.func.vmap(torch.func.grad_and_value(lp))(thetas)
+    out["sharded"].update(vmap_value=vb.numpy(), vmap_grad=gb.numpy())
+    return out
+
+
 def scenario_sparse_mesh(mesh, inputs):
     """``SparseSolver(mesh=)`` with the JAX package's probes, unsharded and
-    sharded, and the refusals."""
+    sharded, and the direct path's refusal of a mesh."""
     from george_tpu_torch import GP, SparseSolver
     import george_tpu_torch as tgt
 
@@ -375,10 +512,6 @@ def scenario_sparse_mesh(mesh, inputs):
                     "sample": gp.solver.apply_sqrt(np.eye(len(x))[:2])}
     refusals = {}
     try:
-        gp.log_prob_fn(x, y, yerr)
-    except NotImplementedError:
-        refusals["log_prob_fn"] = True
-    try:
         GP(K(), solver=SparseSolver, device=DEV, direct=True,
            mesh=mesh).compute(x, yerr)
     except ValueError:
@@ -397,8 +530,12 @@ SCENARIOS = {
     "predict": scenario_predict,
     "hodlr_mesh": scenario_hodlr_mesh,
     "sparse_mesh": scenario_sparse_mesh,
+    "hodlr_mesh_sym": scenario_hodlr_mesh_sym,
+    "gather_rows": scenario_gather_rows,
+    "sparse_mesh_log_prob": scenario_sparse_mesh_log_prob,
 }
-NEEDS_INPUTS = ("predict", "hodlr_mesh", "sparse_mesh")
+NEEDS_INPUTS = ("predict", "hodlr_mesh", "sparse_mesh", "hodlr_mesh_sym",
+                "sparse_mesh_log_prob")
 
 
 def _inputs(workdir, timeout=300.0):

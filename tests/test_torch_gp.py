@@ -315,6 +315,7 @@ def test_every_submodule_imports_with_jax_blocked():
         "assert 'george_tpu_torch.parallel' in names\n"
         "assert 'george_tpu_torch.parallel.collectives' in names\n"
         "assert 'george_tpu_torch.entry' in names\n"
+        "assert 'george_tpu_torch.examples.hyper' in names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -117,10 +117,12 @@ class SymRig(object):
           jnp.asarray(dp))
         self.targs = (kt.pair_fn, _t(theta), _t(xpad), _t(valid), _t(dp))
         self.ft, self.ldt = TH.hodlr_factor_sym(*self.targs, self.stt)
-        # the JAX factors in the port's layout: Qu, Qv (p, s, c) -> (c, p, s)
+        # the JAX factors in the port's row layout: Qu, Qv (p, s, c) ->
+        # Qt (c, n_pad), Qu on each pair's left rows and Qv on its right
         self.fs = {"Lleaf": _t(self.fj["Lleaf"]),
-                   "levels": [(_t(Qu).permute(2, 0, 1), _t(Qv).permute(
-                       2, 0, 1), _t(M), _t(Mi))
+                   "levels": [(torch.stack([_t(Qu), _t(Qv)], dim=1).permute(
+                       3, 0, 1, 2).reshape(Qu.shape[2], st.n_pad), _t(M),
+                       _t(Mi))
                        for Qu, Qv, M, Mi in self.fj["levels"]]}
         self.X = rng.standard_normal((st.n_pad, 3))
         self.x, self.rank = x, rank

@@ -9,8 +9,11 @@ scenario's results. The counterparts of ``tests/test_parallel.py`` and
 against unsharded, ``sharded_predict`` on every solver path against the
 JAX ``gp.predict``, ``shard_chains``, ``HODLRSolver(mesh=)`` on n = 2000
 against the JAX unsharded GP, dense-mass NUTS sharded against unsharded,
-``SparseSolver(mesh=)`` against the JAX unsharded solver, every rank's
-results equal (SPMD determinism) and ``dryrun_multichip``.
+``SparseSolver(mesh=)`` against the JAX unsharded solver, the symmetric
+factorization (``sym=True``, ``apply_sqrt``, ``GP.sample``) and the sparse
+``log_prob_fn`` under ``mesh=`` against the JAX package, ``gather_rows``'s
+adjoints, every rank's results equal (SPMD determinism) and
+``dryrun_multichip``.
 """
 
 import os
@@ -147,6 +150,32 @@ def groups(tmp_path_factory):
     K_dense = np.asarray(K["sparse_mesh"]().get_value(xs))
     ref["sparse_mesh"]["dense_logdet"] = np.linalg.slogdet(
         K_dense + np.diag(yerrs ** 2))[1]
+    # the JAX package's fused sparse likelihood on the same probes
+    lp = jax.jit(jax.value_and_grad(gs.log_prob_fn(xs, ys, yerrs)))
+    thetas = gs.get_parameter_vector()[None, :] + np.asarray(
+        W.SPARSE_LOG_PROB_SHIFTS)
+    vg = [lp(jnp.asarray(th)) for th in thetas]
+    ref["sparse_mesh_log_prob"] = {
+        "value": np.array([float(v) for v, _ in vg]),
+        "grad": np.stack([np.asarray(g) for _, g in vg])}
+    # the JAX package's unsharded symmetric solver on the mesh scenario;
+    # its exact gradient is the fused likelihood's, through the same SMW
+    # cascade as without sym (hence ``gj``'s)
+    x, y, yerr, t = W.hodlr_mesh_problem()
+    R, Y = W.sym_rows()
+    g = jgt.GP(K["hodlr_mesh"](), solver=JH, sym=True,
+               grad_mode="hutchinson", **W.HODLR_MESH_KW)
+    g.compute(x, yerr)
+    mu, var = g.predict(y, t, return_var=True)
+    np.random.seed(W.SAMPLE_SEED)
+    ref["hodlr_mesh_sym"] = {
+        "ll": g.log_likelihood(y), "logdet": g.solver.log_determinant,
+        "grad": ref["hodlr_mesh"]["grad"],
+        "hutchinson": g.grad_log_likelihood(y), "mu": mu,
+        "var": var, "sqrt": g.solver.apply_sqrt(R),
+        "winv": g.solver.apply_inverse_sym_W(Y),
+        "winvt": g.solver.apply_inverse_sym_W_transpose(Y),
+        "sample": g.sample()}
 
     ranks = {}
     for world, ps in procs.items():
@@ -323,12 +352,82 @@ def test_port_hodlr_mesh_functions(groups, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_port_hodlr_mesh_refusals(groups, world):
-    """``sym=True`` and ``GP.sample`` refuse a mesh; a leaf count that does
-    not split over the ranks warns and runs unsharded."""
+    """A leaf count that does not split over the ranks warns and runs
+    unsharded."""
     r = _result(groups, world, "hodlr_mesh")
-    assert r["refusals"] == {"sym": True, "sample": True}
     assert r["odd"]["warned"] and not r["odd"]["sharded"]
     assert np.isfinite(r["odd"]["ll"])
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / np.linalg.norm(np.asarray(b)))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_port_hodlr_mesh_sym_matches_reference(groups, world):
+    """``HODLRSolver(mesh=, sym=True)`` on n = 2000 (16 leaves), on the JAX
+    package's pivots, against the JAX package's unsharded ``sym=True``
+    solver at the bounds of ``test_port_hodlr_mesh_matches_reference``
+    (likelihood and log-determinant 1e-8 relative, gradients with its
+    ``np.allclose``, prediction 1e-7) and the products ``W^T`` (rows of
+    ``apply_sqrt``), ``W^{-1}`` and ``W^{-T}`` to 1e-7 relative (the
+    unsharded port keeps 5e-9 of the JAX factors on its own rig,
+    ``tests/test_torch_hodlr_sym.py``); the symmetric Hutchinson gradient
+    on the same numpy probes; ``GP.sample`` after the same
+    ``np.random.seed`` against the JAX draw and the one-rank port draw."""
+    r = _result(groups, world, "hodlr_mesh_sym")
+    sh, one = r["sharded"], r["one"]
+    ref = groups["ref"]["hodlr_mesh_sym"]
+    assert sh["sharded"] and sh["leaves"] == 16 // world
+    assert not one["sharded"] and one["leaves"] == 16
+    for res in (sh, one):
+        assert abs(res["ll"] - ref["ll"]) < 1e-8 * abs(ref["ll"])
+        assert abs(res["logdet"] - ref["logdet"]) < 1e-8 * abs(ref["logdet"])
+        assert np.allclose(res["grad"], ref["grad"], atol=1e-6)
+        assert np.allclose(res["hutchinson"], ref["hutchinson"], atol=1e-6)
+        np.testing.assert_allclose(res["mu"], ref["mu"], rtol=0, atol=1e-7)
+        np.testing.assert_allclose(res["var"], ref["var"], rtol=0, atol=1e-7)
+        for key in ("sqrt", "winv", "winvt", "sample"):
+            assert res[key].shape == ref[key].shape
+            assert _rel(res[key], ref[key]) < 1e-7, key
+    assert abs(sh["ll"] - one["ll"]) < 1e-6
+    assert np.allclose(sh["grad"], one["grad"], atol=1e-6)
+    np.testing.assert_allclose(sh["hutchinson"], one["hutchinson"],
+                               rtol=1e-8, atol=1e-10)
+    for key in ("sqrt", "winv", "winvt", "sample"):
+        assert _rel(sh[key], one[key]) < 1e-12, key
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_port_hodlr_mesh_sym_reverse_mode(groups, world):
+    """Reverse mode and ``vmap`` through the sharded symmetric
+    factorization (a coarse level reaches theta through ``gather_rows``)
+    equal the unsharded factorization's, at rank 8 (where every core
+    eigenvalue is simple); the gradients at the rounding the near-equal
+    eigenvalues leave (the unsharded ``vmap`` differs from its unbatched
+    call by 1e-6 relative on a CPU)."""
+    r = _result(groups, world, "hodlr_mesh_sym")
+    sh, one = r["sharded"]["functions"], r["one"]["functions"]
+    assert abs(sh["value"] - one["value"]) < 1e-10 * abs(one["value"])
+    np.testing.assert_allclose(sh["vmap_value"], one["vmap_value"],
+                               rtol=1e-10)
+    assert np.all(np.isfinite(sh["grad"])) and np.all(np.isfinite(
+        sh["vmap_grad"]))
+    assert np.allclose(sh["grad"], one["grad"], atol=1e-6)
+    assert np.allclose(sh["vmap_grad"], one["vmap_grad"], atol=1e-6)
+    assert np.allclose(sh["vmap_grad"][0], sh["grad"], atol=1e-6)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_port_gather_rows_adjoints(groups, world):
+    """``gather_rows``: the gradient in each rank's block, the ``jvp`` and
+    the ``vmap`` of a function of the gathered rows equal the whole
+    array's."""
+    for rank in range(world):
+        r = _result(groups, world, "gather_rows", rank)
+        for key in ("grad", "jvp", "vmap"):
+            np.testing.assert_allclose(*r[key], rtol=1e-13, atol=1e-13)
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -359,8 +458,34 @@ def test_port_sparse_mesh_matches_reference(groups, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_port_sparse_mesh_refusals(groups, world):
+    """The direct (banded) path refuses a mesh, as in the JAX package."""
     r = _result(groups, world, "sparse_mesh")
-    assert r["refusals"] == {"log_prob_fn": True, "direct": True}
+    assert r["refusals"] == {"direct": True}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_port_sparse_mesh_log_prob(groups, world):
+    """``GP.log_prob_fn`` through ``SparseSolver(mesh=).loglike_fn`` (CG
+    and SLQ with their adjoints, rows split) on the JAX package's probes:
+    value and gradient against the JAX package's ``log_prob_fn`` at the
+    computed parameters and a step away, to the bounds of
+    ``test_port_sparse_mesh_matches_reference`` (1e-7 relative; gradient
+    ``rtol=1e-7``); ``vmap`` over the 2 chains against the unbatched
+    calls, and the sharded results against one rank's."""
+    r = _result(groups, world, "sparse_mesh_log_prob")
+    ref = groups["ref"]["sparse_mesh_log_prob"]
+    sh, one = r["sharded"], r["one"]
+    assert sh["sharded"] and not one["sharded"]
+    for res in (sh, one):
+        np.testing.assert_allclose(res["value"], ref["value"], rtol=1e-7)
+        np.testing.assert_allclose(res["grad"], ref["grad"], rtol=1e-7,
+                                   atol=1e-10)
+    np.testing.assert_allclose(sh["vmap_value"], sh["value"], rtol=1e-12)
+    np.testing.assert_allclose(sh["vmap_grad"], sh["grad"], rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(sh["value"], one["value"], rtol=1e-7)
+    np.testing.assert_allclose(sh["grad"], one["grad"], rtol=1e-8,
+                               atol=1e-10)
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -373,7 +498,7 @@ def test_port_ranks_agree(groups, world):
             return [x for e in v for x in flat(e)]
         return [v]
 
-    skip = {"shard_chains"}     # per-rank by design
+    skip = {"shard_chains", "gather_rows"}     # per-rank by design
     first = groups["ranks"][world][0]
     for other in groups["ranks"][world][1:]:
         for name in first:
