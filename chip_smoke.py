@@ -6,7 +6,10 @@ sizes the project benchmarks:
 
 * the HODLR marginal log-likelihood and its gradient at n = 1e5 on the
   smooth 1-D dataset (ExpSquared + Matern32, skeleton rank 12, ``min_size``
-  128: 9 levels, 512 leaf boxes of 196 points);
+  128: 9 levels, 512 leaf boxes of 196 points), and at bench.py's two
+  other configurations: the smooth dataset at n = 1e6 (``min_size`` 256:
+  11 levels, 2048 leaves of 489) and the quasi-periodic one at n = 1e5
+  (rank 48);
 * the compact-support sparse solver on the dataset of
   ``benchmarks/bench_dia.py``: n = 2e5 sorted points on [0, n/50], a
   ``WendlandC2Kernel`` (cutoff 2) over ``ExpSquaredKernel(metric=1)``,
@@ -32,7 +35,8 @@ Phases:
 3. kernels, each against its plain torch version on the card, with its
    time beside the plain version's, a library call's and the card's bound:
    the leaf Cholesky (every variant of its launch plan; timed at (512,
-   196) f32 and f64 and (2048, 489) f32, the leaves at n = 1e5 and 1e6),
+   196) f32 and f64 and (2048, 489) f32 and f64, the leaves at n = 1e5 and
+   1e6; (64, 157) f64 held to the plain version too),
    the DIA matvec (a small table first; f32 r = 1, 16, 17 and 40 and f64
    r = 4 on the bench_dia value table, a ragged n, an upper band, the
    device-memory variant; timed at r = 1, 16 and 17 through
@@ -126,7 +130,22 @@ Phases:
     n = 10,000, ``hyper`` at its ``--smoke`` iteration counts,
     ``multioutput``'s ``at_scale`` at n = 10,000; the examples' own
     asserts are the gate, and each leaf-kernel shape they launch is held
-    to the plain version.
+    to the plain version;
+19. bench.py's other configurations, after phase 6, each part with its own
+    leaf-kernel counts by shape: (a) the smooth dataset at n = 1e6 in
+    float32 through ``GP(..., HODLRSolver, min_size=256, rank=12,
+    grad_mode="hutchinson", num_probes=8)``: compute (the host ACA walk,
+    the factor, the self-check) and ``log_likelihood`` against bench.py's
+    anchor at 5e-3, the self-check residual, the Hutchinson likelihood +
+    gradient (one refinement step) against the anchor and timed by
+    bench.py's protocol, peak memory, a stage breakdown and a profile;
+    (b) float64 on (a)'s structure and pivots: the likelihood against the
+    anchor at 1e-6, and (a)'s float32 gradient against the float64 one on
+    the same probes (0.2 of max|g|); (c) the quasi-periodic dataset at
+    n = 1e5, rank 48, in float32 as (a) and in float64 against the anchor
+    and the JAX package's CPU float64 value (1e-7); (d) ``BASELINE.md``
+    row 3 (``tests/test_golden.py``'s qp data at n = 1e4): HODLR rank 64
+    against the dense solver, float64, 1e-6.
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
@@ -137,7 +156,12 @@ root with no arguments::
 ``python3 chip_smoke.py --unsharded-times A B B A`` instead times the
 unsharded HODLR, sparse and NUTS paths (``unsharded_times``) of the ports
 in the checkouts ``A`` and ``B`` in turns, each run in a process of its
-own, to compare two versions on one card.
+own, to compare two versions on one card. ``python3 chip_smoke.py
+--unchunked-peak`` measures the peak memory of one n = 1e6 Hutchinson
+evaluation with the assemblies' chunk budget at its default and lifted
+(``unchunked_peak``); ``python3 chip_smoke.py --cascade-dtype`` runs the
+float32 n = 1e6 GP with the HODLR cascade in float32 and in float64
+(``cascade_dtype``).
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -159,6 +183,24 @@ ANCHOR = -23484.7706
 ANCHOR_F32 = 2e-3
 ANCHOR_F64 = 1e-6
 N_MAIN = 100_000
+# bench.py's two other anchors (bench.py:72-76), each at its tolerance:
+# the smooth dataset at n = 1e6 (a rank-64 float64 factorization; bench.py
+# runs it in float32 at min_size 256, rank 12, with one refinement step)
+# and the quasi-periodic dataset at n = 1e5 (rank-96 float64; rank 48)
+N_1E6 = 1_000_000
+ANCHOR_1E6 = -217929.3465
+ANCHOR_1E6_F32 = 5e-3
+ANCHOR_QP = -6669.998996
+ANCHOR_QP_TOL = 5e-3
+ANCHORS = {("smooth", N_MAIN): ANCHOR, ("smooth", N_1E6): ANCHOR_1E6,
+           ("qp", N_MAIN): ANCHOR_QP}
+# the JAX package's own float64 log-likelihood of the qp dataset at
+# n = 1e5: george_tpu.GP(kernel, solver=HODLRSolver, min_size=128,
+# rank=48, seed=42) with its host ACA pivots, computed once on the CPU
+# (JAX 0.9.0, x64). The port's float64 value sits a few 1e-8 from it: the
+# two packages' ACA walks break near-ties differently
+QP_JAX_F64 = -6669.9997322710
+QP_JAX_F64_TOL = 1e-7
 N_DIA = 200_000
 # NUTS warmup and sample steps per dtype. bench_nuts's 200 + 200 took
 # 1227 s in float64 alone on an H100 (57,698 batched leapfrog steps of
@@ -206,15 +248,42 @@ def smooth_dataset(n):
     return x, y, yerr, kernel
 
 
-def check_anchor(name, ll, rel_tol, n):
+def qp_kernel():
+    """bench.py's quasi-periodic kernel (``tests/test_golden.py``'s too)."""
+    from george_tpu_torch import kernels
+
+    return 1.0 * kernels.ExpSquaredKernel(20.0) * kernels.ExpSine2Kernel(
+        gamma=1.0, log_period=np.log(3.7))
+
+
+def qp_dataset(n):
+    """bench.py's quasi-periodic dataset, same numpy stream: x, y, yerr,
+    kernel."""
+    rng = np.random.default_rng(42)
+    x = np.sort(rng.uniform(0, 1000.0, n))[:, None]
+    y = (np.sin(2 * np.pi * x[:, 0] / 3.7) * np.cos(0.13 * x[:, 0])
+         + 0.25 * rng.standard_normal(n))
+    yerr = np.sqrt(0.0625) * np.ones(n)
+    return x, y, yerr, qp_kernel()
+
+
+DATASETS = {"smooth": smooth_dataset, "qp": qp_dataset}
+
+
+def check_anchor(name, ll, rel_tol, n, variant="smooth", truth=None):
+    """``ll`` against ``truth``, by default bench.py's anchor of the
+    ``variant`` dataset at ``n`` (none: only finiteness is checked)."""
     if not np.isfinite(ll):
         raise RuntimeError("%s: non-finite log-likelihood %r" % (name, ll))
-    if n != N_MAIN:
-        log("%s: ll %.10f (no anchor at n=%d)" % (name, ll, n))
+    if truth is None:
+        truth = ANCHORS.get((variant, n))
+    if truth is None:
+        log("%s: ll %.10f (no anchor for %s at n=%d)"
+            % (name, ll, variant, n))
         return None
-    rel = abs(ll - ANCHOR) / abs(ANCHOR)
-    log("%s: ll %.10f, anchor %.4f, rel err %.3e (limit %.0e)"
-        % (name, ll, ANCHOR, rel, rel_tol))
+    rel = abs(ll - truth) / abs(truth)
+    log("%s: ll %.10f, reference %.10g, rel err %.3e (limit %.0e)"
+        % (name, ll, truth, rel, rel_tol))
     if rel > rel_tol:
         raise RuntimeError("%s: %.3e off the anchor (limit %.0e)"
                            % (name, rel, rel_tol))
@@ -461,6 +530,8 @@ def phase_kernel():
     cases = [(512, 196, torch.float32, "shared", 1e-4, True),
              (512, 196, torch.float64, "shared", 1e-10, True),
              (2048, 489, torch.float32, "device", 1e-4, True),
+             (2048, 489, torch.float64, "device", 1e-10, True),
+             (64, 157, torch.float64, "shared", 1e-10, False),
              (64, 489, torch.float32, "device", 1e-4, False),
              (16, 196, torch.float64, "shared", 1e-10, False),
              HM_WHITENER_LEAVES + (torch.float64, "shared", 1e-10, False),
@@ -509,28 +580,64 @@ def _hutchinson_args(gp, y):
             torch.as_tensor(r, device=s.device, dtype=s.dtype), st)
 
 
-def phase_slice_f32(device, n):
+def hodlr_gp(label, device, variant, n, dtype, tol, **solver_kw):
+    """``GP.compute`` and ``log_likelihood`` of bench.py's ``variant``
+    dataset at ``n`` through ``HODLRSolver(**solver_kw)``: the likelihood
+    against the dataset's anchor at ``tol``, the first compute's
+    factorization self-check, the seconds of the host ACA walk, the factor
+    and the self-check (the solver's ``diagnostics`` spans), and the peak
+    device memory. Returns ``(gp, (x, y, yerr), out)``."""
     import torch
     import george_tpu_torch as gtt
-    from george_tpu_torch.solvers import hodlr as H
+    from george_tpu_torch import diagnostics
 
-    x, y, yerr, kernel = smooth_dataset(n)
-    out = {}
-    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
-                device=device, dtype=torch.float32)
+    x, y, yerr, kernel = DATASETS[variant](n)
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, device=device, dtype=dtype,
+                **solver_kw)
+    before = diagnostics.report()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gp.compute(x, yerr)
+    sync(device)
+    t1 = time.perf_counter()
     ll = gp.log_likelihood(y)
     sync(device)
+    t2 = time.perf_counter()
+    spans = {k: v["total_s"] - before.get(k, {"total_s": 0.0})["total_s"]
+             for k, v in diagnostics.report().items()}
     st = gp.solver._struct
-    log("slice f32: n=%d L=%d leaves %d x %d, compute + log_likelihood "
-        "%.3f s" % (n, st.L, st.n_pad // st.m, st.m,
-                    time.perf_counter() - t0))
-    out["gp_rel"] = check_anchor("slice f32 GP.log_likelihood", ll,
-                                 ANCHOR_F32, n)
-    out["factor_residual"] = check_residual("slice f32", gp.solver, 1e-2)
+    out = {"n": n, "L": st.L, "leaves": [st.n_pad // st.m, st.m],
+           "rank": st.rank, "compute_s": t1 - t0, "log_likelihood_s": t2 - t1,
+           "aca_s": spans.get("hodlr.aca_pivots"),
+           "factor_s": spans["hodlr.compute"],
+           "self_check_s": spans.get("hodlr.self_check"),
+           "refine_steps": gp.solver._refine_eff, "ll": ll,
+           "peak_gb_compute_ll": torch.cuda.max_memory_allocated() / 1e9}
+    log("%s: n=%d L=%d leaves %d x %d rank %d; compute %.3f s (spans: ACA "
+        "walk %s s, factor %.3f s, self-check %s s), log_likelihood %.3f s "
+        "(%d refinement steps); peak device memory %.3f GB"
+        % (label, n, st.L, st.n_pad // st.m, st.m, st.rank, t1 - t0,
+           out["aca_s"], out["factor_s"], out["self_check_s"], t2 - t1,
+           out["refine_steps"], out["peak_gb_compute_ll"]))
+    out["gp_rel"] = check_anchor("%s GP.log_likelihood" % label, ll, tol, n,
+                                 variant)
+    out["factor_residual"] = check_residual(
+        label, gp.solver, 1e-2 if dtype == torch.float32 else 1e-6)
+    return gp, (x, y, yerr), out
 
-    pair, theta, xpad, valid, diag, r, st = _hutchinson_args(gp, y)
+
+def hodlr_hutchinson(label, device, gp, y, variant, tol, repeats=3):
+    """The Hutchinson likelihood + gradient through the functional path
+    (8 probes from a seeded ``torch.Generator``, one refinement step) on
+    ``gp``'s solver: the likelihood against the anchor at ``tol``, the
+    peak device memory of one evaluation, then bench.py's protocol (16
+    distinct thetas queued, one synchronize, best of ``repeats``).
+    Returns ``(out, evaluate, thetas, args)``."""
+    import torch
+    from george_tpu_torch.solvers import hodlr as H
+
+    n = gp.solver._struct.n
+    pair, theta, xpad, valid, diag, r, st = args = _hutchinson_args(gp, y)
     gen = torch.Generator(device=device).manual_seed(0)
 
     def evaluate(th):
@@ -538,19 +645,26 @@ def phase_slice_f32(device, n):
             pair, th, xpad, valid, diag, r, st, generator=gen,
             num_probes=8, n_real=n, refine_steps=1)
 
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     ll_h, g_h = evaluate(theta)
     sync(device)
+    out["peak_gb_eval"] = torch.cuda.max_memory_allocated() / 1e9
+    out["resident_gb_before_eval"] = resident / 1e9
     g_h = g_h.cpu().numpy()
-    out["hutch_rel"] = check_anchor("slice f32 Hutchinson", float(ll_h),
-                                    ANCHOR_F32, n)
-    log("slice f32 Hutchinson gradient: %s" % np.array2string(g_h))
+    out["hutch_rel"] = check_anchor("%s Hutchinson" % label, float(ll_h),
+                                    tol, n, variant)
+    log("%s Hutchinson gradient: %s; peak device memory of one evaluation "
+        "%.3f GB (%.3f GB resident before it)"
+        % (label, np.array2string(g_h), out["peak_gb_eval"],
+           out["resident_gb_before_eval"]))
     if not np.all(np.isfinite(g_h)):
-        raise RuntimeError("non-finite Hutchinson gradient")
+        raise RuntimeError("%s: non-finite Hutchinson gradient" % label)
 
-    # bench.py's protocol: 16 distinct thetas queued, one sync, best of 3
     thetas = [theta + 1e-5 * k for k in range(16)]
     times = []
-    for _ in range(3):
+    for _ in range(repeats):
         sync(device)
         t0 = time.perf_counter()
         outs = [evaluate(th) for th in thetas]
@@ -558,14 +672,28 @@ def phase_slice_f32(device, n):
         times.append((time.perf_counter() - t0) / len(thetas) * 1e3)
         if not all(bool(torch.isfinite(o[0])) for o in outs):
             raise RuntimeError("non-finite log-likelihood in the timed run")
+        del outs
     out["ms_per_eval"] = min(times)
     out["ms_per_eval_all"] = times
-    log("slice f32 Hutchinson ll+grad: %.3f ms/eval (best of 3 x 16; all "
-        "%s)" % (min(times), ", ".join("%.3f" % t for t in times)))
-    return out, evaluate, thetas, (pair, theta, xpad, valid, diag, r, st)
+    log("%s Hutchinson ll+grad: %.3f ms/eval (best of %d x 16; all %s)"
+        % (label, min(times), repeats, ", ".join("%.3f" % t for t in times)))
+    return out, evaluate, thetas, args
 
 
-def stage_breakdown(pair, theta, xpad, valid, diag, r, st, device):
+def phase_slice_f32(device, n):
+    import torch
+
+    gp, (_, y, _), out = hodlr_gp("slice f32", device, "smooth", n,
+                                  torch.float32, ANCHOR_F32, min_size=128,
+                                  rank=12)
+    hutch, evaluate, thetas, args = hodlr_hutchinson(
+        "slice f32", device, gp, y, "smooth", ANCHOR_F32)
+    out.update(hutch)
+    return out, evaluate, thetas, args
+
+
+def stage_breakdown(pair, theta, xpad, valid, diag, r, st, device,
+                    label="slice f32"):
     """Milliseconds of each stage of one Hutchinson evaluation, each run
     alone between synchronizations (median of 5)."""
     import torch
@@ -602,8 +730,8 @@ def stage_breakdown(pair, theta, xpad, valid, diag, r, st, device):
 
     stages["grad_jvp_pass"] = timed(
         lambda: H.dK_products(pair, theta, xpad, valid, diag, st, rhs))
-    log("slice f32 stages (ms, median of 5, each alone): %s"
-        % json.dumps(stages))
+    log("%s stages (ms, median of 5, each alone): %s"
+        % (label, json.dumps(stages)))
     return stages
 
 
@@ -661,21 +789,10 @@ def profile_calls(calls, best_ms, label):
 
 def phase_slice_f64(device, n):
     import torch
-    import george_tpu_torch as gtt
 
-    x, y, yerr, kernel = smooth_dataset(n)
-    out = {}
-    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, min_size=128, rank=12,
-                device=device, dtype=torch.float64)
-    t0 = time.perf_counter()
-    gp.compute(x, yerr)
-    ll = gp.log_likelihood(y)
-    sync(device)
-    log("slice f64: compute + log_likelihood %.3f s"
-        % (time.perf_counter() - t0))
-    out["gp_rel"] = check_anchor("slice f64 GP.log_likelihood", ll,
-                                 ANCHOR_F64, n)
-    out["factor_residual"] = check_residual("slice f64", gp.solver, 1e-6)
+    gp, (_, y, _), out = hodlr_gp("slice f64", device, "smooth", n,
+                                  torch.float64, ANCHOR_F64, min_size=128,
+                                  rank=12)
 
     t0 = time.perf_counter()
     g = gp.grad_log_likelihood(y)
@@ -1371,6 +1488,248 @@ def phase_hodlr_chains(device, n):
     out["profile"] = profile_calls([lambda: value_and_grad(thetas)],
                                    out["batched_eval_s"] * 1e3,
                                    "hodlr chains, one batched evaluation")
+    return out
+
+
+# phase 19: bench.py's other two configurations (bench.py:101-111,
+# 160-176, 241-258) through the port's GP; the leaf kernel's launches of
+# each part by shape, and the shape each part must launch
+BENCH_1E6 = dict(min_size=256, rank=12, grad_mode="hutchinson", num_probes=8)
+BENCH_QP = dict(min_size=128, rank=48, grad_mode="hutchinson", num_probes=8)
+BENCH_LEAVES = {"smooth_1e6_f32": (2048, 489, 489, "float32"),
+                "smooth_1e6_f64": (2048, 489, 489, "float64"),
+                "qp_1e5_f32": (512, 196, 196, "float32"),
+                "qp_1e5_f64": (512, 196, 196, "float64"),
+                "baseline_row3": (64, 157, 157, "float64")}
+# repeats of bench.py's 16-theta protocol at n = 1e6 and at qp n = 1e5
+BENCH_REPEATS = 3
+# (b): the float32 Hutchinson gradient at n = 1e6 against the float64 one
+# on the same pivots and probes, as a share of max|g|. Both packages sit
+# near 4e-2 on a CPU rig of the same depth; a broken float32 cascade (at
+# L = 13 the solve residual reached 9.0, bench.py:164-169) is far past it
+GRAD_F32_VS_F64 = 0.2
+
+
+def _padded_inputs(gp, x, y, dtype):
+    """``gp``'s points, diagonal and residual in its solver's sorted, padded
+    order, from the float64 data (not from the solver's own tensors, which
+    hold them rounded to its dtype): ``xpad, valid, diag, r``."""
+    import torch
+
+    s = gp.solver
+    st, perm, n = s._struct, s._perm, s._struct.n
+    xs = np.asarray(x, dtype=np.float64)[perm]
+    xpad = np.concatenate([xs, np.repeat(xs[-1:], st.n_pad - n, axis=0)])
+    valid = np.zeros(st.n_pad, dtype=bool)
+    valid[:n] = True
+    diag = np.ones(st.n_pad)
+    diag[:n] = (gp._yerr2 + np.exp(gp._call_white_noise(gp._x)))[perm]
+    r = np.zeros(st.n_pad)
+    r[:n] = np.asarray(y, dtype=np.float64)[perm]
+
+    def t(a):
+        return torch.as_tensor(a, device=s.device, dtype=dtype)
+
+    return t(xpad), torch.as_tensor(valid, device=s.device), t(diag), t(r)
+
+
+def _rademacher(num, n_pad, device, seed):
+    """``(num, n_pad)`` float64 Rademacher probes from a seeded generator on
+    ``device``, to hand the same probes to both dtypes."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(0, 2, (num, n_pad), generator=g, device=device)
+    return (2 * bits - 1).to(torch.float64)
+
+
+def _bench_launches(label, stop, key):
+    """Read the leaf kernel's launches of one part (``_p17_record``) and
+    require the part's leaf shape among them."""
+    launches = stop()
+    log("%s: leaf Cholesky kernel launches %d, by shape %s"
+        % (label, launches["leaf"], launches["leaf_by_shape"]))
+    if launches["leaf"] == 0 or BENCH_LEAVES[key] not in launches[
+            "leaf_shapes"]:
+        raise RuntimeError("%s never launched the leaf kernel at %s"
+                           % (label, BENCH_LEAVES[key]))
+    return launches
+
+
+def phase_bench_1e6(device, n=N_1E6, repeats=BENCH_REPEATS):
+    """Phase 19 (a) and (b): bench.py's north-star configuration, the
+    smooth dataset at n = 1e6, ``min_size`` 256 (L = 11, 2048 leaves of
+    489), rank 12. (a) float32 through ``GP(..., HODLRSolver,
+    grad_mode="hutchinson", num_probes=8)``: compute (ACA walk, factor,
+    self-check) and ``log_likelihood`` (one refinement step) against the
+    anchor, the Hutchinson likelihood + gradient through the functional
+    path against it and timed, peak memory, then outside the count a
+    stage breakdown and a profile of one evaluation. (b) float64 on (a)'s
+    structure and pivots through the functional path: the likelihood
+    against the anchor at 1e-6, and one Hutchinson evaluation on the same
+    probes as one of (a)'s, which (a)'s float32 gradient is held to."""
+    import torch
+    from george_tpu_torch.solvers import hodlr as H
+
+    out = {}
+    stop = _p17_record()
+    gp, (x, y, _), a = hodlr_gp("bench 1e6 f32", device, "smooth", n,
+                                torch.float32, ANCHOR_1E6_F32, **BENCH_1E6)
+    hutch, evaluate, thetas, args = hodlr_hutchinson(
+        "bench 1e6 f32", device, gp, y, "smooth", ANCHOR_1E6_F32, repeats)
+    a.update(hutch)
+    pair, theta, xpad, valid, diag, r, st = args
+    probes = _rademacher(8, st.n_pad, device, 1)
+    _, g32 = H.hodlr_loglike_and_grad_hutchinson(
+        pair, theta, xpad, valid, diag, r, st, probes=probes.float(),
+        num_probes=8, n_real=n, refine_steps=1)
+    g32 = g32.double().cpu().numpy()
+    a["launches"] = _bench_launches("bench 1e6 f32", stop, "smooth_1e6_f32")
+    a["stages"] = stage_breakdown(*args, device, label="bench 1e6 f32")
+    a["profile"] = profile_calls([lambda: evaluate(thetas[1])],
+                                 a["ms_per_eval"], "bench 1e6 f32")
+    out["f32"] = a
+    del evaluate, thetas, args, xpad, valid, diag, r
+    xpad, valid, diag, r = _padded_inputs(gp, x, y, torch.float64)
+    theta = torch.as_tensor(gp.kernel.parameter_vector, device=device,
+                            dtype=torch.float64)
+    del gp
+    torch.cuda.empty_cache()
+
+    b = {}
+    stop = _p17_record()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        factors, logdet = H.hodlr_factor(pair, theta, xpad, valid, diag, st)
+        z = H.hodlr_solve(factors, st, r)
+        ll = float(-0.5 * (torch.dot(r, z) + logdet + n * np.log(2 * np.pi)))
+    b["factor_solve_s"] = time.perf_counter() - t0
+    b["peak_gb_factor_solve"] = torch.cuda.max_memory_allocated() / 1e9
+    del factors, z
+    b["rel"] = check_anchor("bench 1e6 f64 (a)'s pivots, factor + solve",
+                            ll, ANCHOR_F64, n)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ll_h, g64 = H.hodlr_loglike_and_grad_hutchinson(
+        pair, theta, xpad, valid, diag, r, st, probes=probes, num_probes=8,
+        n_real=n, refine_steps=1)
+    sync(device)
+    b["hutch_s"] = time.perf_counter() - t0
+    b["peak_gb_eval"] = torch.cuda.max_memory_allocated() / 1e9
+    b["hutch_rel"] = check_anchor("bench 1e6 f64 Hutchinson", float(ll_h),
+                                  ANCHOR_F64, n)
+    g64 = g64.cpu().numpy()
+    b["grad"] = g64.tolist()
+    a["grad_shared_probes"] = g32.tolist()
+    log("bench 1e6 f64: factor + solve %.3f s (peak %.3f GB), Hutchinson "
+        "evaluation %.3f s (peak %.3f GB); gradient %s"
+        % (b["factor_solve_s"], b["peak_gb_factor_solve"], b["hutch_s"],
+           b["peak_gb_eval"], np.array2string(g64)))
+    b["f32_grad_gap"] = _gate(
+        "bench 1e6 f32 Hutchinson gradient vs f64 on the same probes, "
+        "max|d| / max|g|",
+        float(np.abs(g32 - g64).max() / np.abs(g64).max()), GRAD_F32_VS_F64)
+    b["launches"] = _bench_launches("bench 1e6 f64", stop, "smooth_1e6_f64")
+    out["f64"] = b
+    return out
+
+
+def phase_bench_qp(device, n=N_MAIN, repeats=BENCH_REPEATS):
+    """Phase 19 (c): bench.py's quasi-periodic configuration at n = 1e5,
+    ``min_size`` 128 (512 leaves of 196), rank 48, through ``GP``: float32
+    as (a) (the likelihood and the Hutchinson likelihood + gradient with
+    one refinement step, both against the anchor, timed), then float64
+    against the anchor and against the JAX package's CPU float64 value."""
+    import torch
+
+    out = {}
+    stop = _p17_record()
+    gp, (_, y, _), c = hodlr_gp("bench qp f32", device, "qp", n,
+                                torch.float32, ANCHOR_QP_TOL, **BENCH_QP)
+    hutch, evaluate, thetas, args = hodlr_hutchinson(
+        "bench qp f32", device, gp, y, "qp", ANCHOR_QP_TOL, repeats)
+    c.update(hutch)
+    c["launches"] = _bench_launches("bench qp f32", stop, "qp_1e5_f32")
+    out["f32"] = c
+    del gp, evaluate, thetas, args
+    torch.cuda.empty_cache()
+
+    stop = _p17_record()
+    gp, _, c = hodlr_gp("bench qp f64", device, "qp", n, torch.float64,
+                        ANCHOR_QP_TOL, **BENCH_QP)
+    if n == N_MAIN:
+        c["jax_f64_rel"] = check_anchor(
+            "bench qp f64 vs the JAX package's CPU float64", c["ll"],
+            QP_JAX_F64_TOL, n, truth=QP_JAX_F64)
+    c["launches"] = _bench_launches("bench qp f64", stop, "qp_1e5_f64")
+    out["f64"] = c
+    return out
+
+
+def phase_baseline_row3(device, n=10_000):
+    """Phase 19 (d): ``BASELINE.md`` row 3 on the card, the data of
+    ``tests/test_golden.py``'s quasi-periodic test (n = 1e4 on [0, 100]):
+    ``HODLRSolver(min_size=128, rank=64)`` (64 leaves of 157) against the
+    port's dense ``BasicSolver``, both float64, relative 1e-6."""
+    import torch
+    import george_tpu_torch as gtt
+
+    rng = np.random.default_rng(42)
+    x = np.sort(rng.uniform(0, 100.0, n))[:, None]
+    yerr = 0.25 * np.ones(n)
+    y = (np.sin(2 * np.pi * x[:, 0] / 3.7) * np.cos(0.13 * x[:, 0])
+         + 0.25 * rng.standard_normal(n))
+    stop = _p17_record()
+    t0 = time.perf_counter()
+    gp = gtt.GP(qp_kernel(), solver=gtt.HODLRSolver, min_size=128, rank=64,
+                seed=42, device=device, dtype=torch.float64)
+    gp.compute(x, yerr)
+    ll_h = gp.log_likelihood(y)
+    secs = time.perf_counter() - t0
+    d = {"launches": _bench_launches("baseline row 3", stop,
+                                     "baseline_row3")}
+    ll_b = dense_gp(qp_kernel(), x, yerr, device).log_likelihood(y)
+    d.update(hodlr_s=secs, ll_hodlr=ll_h, ll_dense=ll_b)
+    d["rel"] = _gate("baseline row 3 (qp n=%d) HODLR rank 64 vs dense, "
+                     "f64 rel" % n, abs(ll_h - ll_b) / abs(ll_b), 1e-6)
+    return d
+
+
+def _bench_times(label, part, card):
+    """One line of a phase 19 part's times and peaks, with the card."""
+    keys = ("compute_s", "aca_s", "factor_s", "self_check_s",
+            "log_likelihood_s", "ms_per_eval", "factor_solve_s", "hutch_s",
+            "hodlr_s",
+            "peak_gb_compute_ll", "peak_gb_eval", "peak_gb_factor_solve")
+    log("%s on %s: %s" % (label, card, json.dumps(
+        {k: part[k] for k in keys if part.get(k) is not None})))
+
+
+def phase_bench_configs(device, card, repeats=BENCH_REPEATS):
+    """Phase 19: (a) and (b) smooth n = 1e6, (c) qp n = 1e5 at rank 48,
+    (d) ``BASELINE.md`` row 3; the seconds of each in ``out["seconds"]``.
+    Every time is printed again beside ``card``, the card's ``nvidia-smi``
+    name and power limit."""
+    import torch
+
+    out, secs = {}, {}
+    for key, fn in (("smooth_1e6", phase_bench_1e6),
+                    ("qp_1e5", phase_bench_qp)):
+        t0 = time.perf_counter()
+        out[key] = fn(device, repeats=repeats)
+        secs[key] = time.perf_counter() - t0
+        for dt in ("f32", "f64"):
+            _bench_times("bench configs (19) %s %s" % (key, dt),
+                         out[key][dt], card)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["baseline_row3"] = phase_baseline_row3(device)
+    secs["baseline_row3"] = time.perf_counter() - t0
+    _bench_times("bench configs (19) baseline_row3", out["baseline_row3"],
+                 card)
+    out["seconds"] = secs
+    log("bench configs (19) on %s: seconds %s" % (card, json.dumps(secs)))
     return out
 
 
@@ -2440,7 +2799,7 @@ def _p17_record():
     """Count this process's leaf-kernel and DIA-kernel launches from 0 and
     record each launch's shape; returns ``stop``, ``stop()`` giving
     ``{"leaf": n, "leaf_B": [...], "leaf_shapes": [(B, m, m, dtype), ...],
-    "dia": n, "dia_r": [...], "dia_shapes": [(n, D, d_min, r, dtype),
+    "leaf_by_shape": {"(B, m) dtype": n, ...}, "dia": n, "dia_r": [...], "dia_shapes": [(n, D, d_min, r, dtype),
     ...]}``."""
     from george_tpu_torch.ops import chol, dia
 
@@ -2466,6 +2825,10 @@ def _p17_record():
         return {"leaf": chol.chol_kernel_launches,
                 "leaf_B": sorted(set(b for b, _, _, _ in shapes["leaf"])),
                 "leaf_shapes": sorted(set(shapes["leaf"])),
+                "leaf_by_shape": {
+                    "(%d, %d) %s" % (b, m, dt): shapes["leaf"].count(
+                        (b, m, m2, dt))
+                    for b, m, m2, dt in sorted(set(shapes["leaf"]))},
                 "dia": dia.dia_kernel_launches,
                 "dia_r": sorted(set(r for _, _, _, r, _ in shapes["dia"])),
                 "dia_shapes": sorted(set(shapes["dia"]))}
@@ -3442,6 +3805,96 @@ def _unsharded_child(root):
     print(json.dumps(unsharded_times()), flush=True)
 
 
+def unchunked_peak():
+    """``--unchunked-peak``: the peak device memory of one Hutchinson
+    evaluation in phase 19 (a)'s configuration (smooth n = 1e6, 8 probes,
+    one refinement step), float32 and float64, with the chunk budget of
+    the leaf and skeleton assemblies (``hodlr._CHUNK_BYTES``) at its
+    default and lifted; an evaluation that does not fit prints the
+    allocator's message instead of its peak."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.solvers import hodlr as H
+
+    smi = phase_device()
+    phase_build()
+    x, y, yerr, kernel = smooth_dataset(N_1E6)
+    default, out = H._CHUNK_BYTES, {}
+    for dtype in (torch.float32, torch.float64):
+        gp = gtt.GP(kernel, solver=gtt.HODLRSolver, device="cuda",
+                    dtype=dtype, **BENCH_1E6)
+        gp.compute(x, yerr)
+        args = _hutchinson_args(gp, y)
+        del gp
+        for name, budget in (("chunked", default), ("unchunked", 1 << 62)):
+            H._CHUNK_BYTES = budget
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            try:
+                H.hodlr_loglike_and_grad_hutchinson(
+                    *args, generator=gen, num_probes=8, n_real=N_1E6,
+                    refine_steps=1)
+                sync("cuda")
+                res = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            except torch.cuda.OutOfMemoryError as e:
+                res = {"out_of_memory_after_peak_gb":
+                       torch.cuda.max_memory_allocated() / 1e9,
+                       "message": str(e).splitlines()[0]}
+            finally:
+                H._CHUNK_BYTES = default
+            out["%s_%s" % (str(dtype).split(".")[-1], name)] = res
+            log("unchunked peak, %s %s: %s" % (dtype, name, json.dumps(res)))
+        del args
+    log(smi)
+    print(json.dumps({"unchunked_peak": out, "device": smi}), flush=True)
+
+
+def cascade_dtype():
+    """``--cascade-dtype``: phase 19 (a)'s float32 GP at n = 1e6 with the
+    HODLR cascade's dtype (``hodlr._CASCADE``: the SMW levels, their
+    solves, the skeleton ridge systems) at float32, as the JAX package runs
+    it, and at float64, as the port does: the distance of the likelihood
+    and of the Hutchinson likelihood from bench.py's anchor, and the
+    self-check residual."""
+    import warnings
+
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.solvers import hodlr as H
+
+    smi = phase_device()
+    phase_build()
+    x, y, yerr, kernel = smooth_dataset(N_1E6)
+    default, out = H._CASCADE, {}
+    for dtype in (torch.float32, torch.float64):
+        H._CASCADE = dtype
+        gtt.HODLRSolver._checked_configs.clear()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                gp = gtt.GP(kernel, solver=gtt.HODLRSolver, device="cuda",
+                            dtype=torch.float32, **BENCH_1E6)
+                gp.compute(x, yerr)
+                ll = gp.log_likelihood(y)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            ll_h, _ = H.hodlr_loglike_and_grad_hutchinson(
+                *_hutchinson_args(gp, y), generator=gen, num_probes=8,
+                n_real=N_1E6, refine_steps=1)
+            res = {"ll": ll, "ll_rel": float(rel(ll, ANCHOR_1E6)),
+                   "hutchinson_ll_rel": float(rel(float(ll_h), ANCHOR_1E6)),
+                   "factor_residual": gp.solver.factor_residual}
+        finally:
+            H._CASCADE = default
+        out[str(dtype).split(".")[-1]] = res
+        log("cascade dtype %s (working dtype float32): %s"
+            % (dtype, json.dumps(res)))
+        del gp
+        torch.cuda.empty_cache()
+    log(smi)
+    print(json.dumps({"cascade_dtype": out, "device": smi}), flush=True)
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3486,6 +3939,17 @@ def main():
     if launches_chains == 0:
         raise RuntimeError("the chain-batched path never launched the leaf "
                            "kernel")
+    torch.cuda.empty_cache()
+
+    # phase 19: bench.py's other configurations; each part counts its own
+    # leaf launches from 0
+    log("bench configs (19): starting %.1f s into the run"
+        % (time.perf_counter() - t_start))
+    bench = phase_bench_configs(device, smi)
+    bench_launches = {
+        "%s_%s" % (cfg, dt): bench[cfg][dt]["launches"]
+        for cfg in ("smooth_1e6", "qp_1e5") for dt in ("f32", "f64")}
+    bench_launches["baseline_row3"] = bench["baseline_row3"]["launches"]
     torch.cuda.empty_cache()
 
     # the symmetric factorization and GP.sample, float64 then float32
@@ -3614,7 +4078,8 @@ def main():
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
         "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
         "lcm": lcm, "hmatrix": hm, "checkpoint": ckpt, "parallel": par,
-        "examples": ex, "seconds": time.perf_counter() - t_start}}))
+        "examples": ex, "bench_configs": bench,
+        "seconds": time.perf_counter() - t_start}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library
     t, t2 = sorted((tile["8x128"], tile["1024x64"]),
@@ -3622,6 +4087,7 @@ def main():
     shapes = {id(tile["8x128"]): "(8, 128) f32",
               id(tile["1024x64"]): "(1024, 64) f32"}
     k64, k489 = kern["512x196_float64"], kern["2048x489_float32"]
+    k489d = kern["2048x489_float64"]
     print(json.dumps({"kernels": [
         {"name": "leaf_cholesky", "route": "cuda",
          "source": "george_tpu_torch/csrc/chol.cu",
@@ -3641,6 +4107,15 @@ def main():
          "bound_ms_2048x489_f32": k489["bound_ms"],
          "library_ms_2048x489_f32": k489["library_ms"],
          "max_abs_err_2048x489_f32": k489["max_abs_err"],
+         "ms_2048x489_f64": k489d["ms"],
+         "plain_ms_2048x489_f64": k489d["plain_ms"],
+         "bound_ms_2048x489_f64": k489d["bound_ms"],
+         "library_ms_2048x489_f64": k489d["library_ms"],
+         "max_abs_err_2048x489_f64": k489d["max_abs_err"],
+         "launches_bench_configs": {
+             k: v["leaf_by_shape"] for k, v in bench_launches.items()},
+         "launches_in_bench_configs": "phase 19, each part's own count "
+                                      "by leaf shape",
          "launches_chain_batched": launches_chains,
          "chain_batched_launch_B": chains["leaf_launch_batch"],
          "launches_sym_path": launches_sym,
@@ -3730,5 +4205,9 @@ if __name__ == "__main__":
         unsharded_times_ab(sys.argv[2:])
     elif sys.argv[1:2] == ["--unsharded-child"]:
         _unsharded_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--unchunked-peak"]:
+        unchunked_peak()
+    elif sys.argv[1:2] == ["--cascade-dtype"]:
+        cascade_dtype()
     else:
         main()

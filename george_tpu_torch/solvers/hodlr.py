@@ -17,9 +17,20 @@ determinant accumulates the leaf Cholesky diagonals and the cores'
 
 Layout: every level factor is stored TRANSPOSED, ``(c, n_pad)``, and every
 multi-RHS batch as ``(k, n_pad)`` — the one layout the port carries. The
-JAX package's row layout, HBM chunking of the leaf sweeps, width-bounded
-ancestor-update groups and mesh-sharding pins were workarounds for the
-TPU's memory and lane tiling and are not ported.
+JAX package's row layout, width-bounded ancestor-update groups and
+mesh-sharding pins were workarounds for the TPU's memory and lane tiling
+and are not ported. Its chunked leaf sweeps are, in another form: the leaf
+grams and the skeleton entry table are evaluated in chunks of at most
+``_CHUNK_BYTES`` of entries, because eager torch materializes each
+temporary of the pair function (and under ``jvp`` its tangents) that XLA
+would fuse.
+
+Precision: the working dtype (``dtype=``) holds the bulk of the work —
+the kernel entries, the leaf grams, the leaf Cholesky kernel and its
+triangular solves, the gradient's forward-mode pass — while the SMW
+cascade above the leaves, every level of a solve and the skeleton
+interpolants' ridge systems run in float64 (``_CASCADE``), where a float32
+run on the TPU kept them in float32.
 
 Gradients: the whole factorization is differentiable torch code, so
 autograd through :meth:`HODLRSolver.loglike_fn` gives the exact gradient
@@ -417,6 +428,44 @@ def _block_matrix(pair_fn, theta, xa, va, xb, vb):
     return torch.where(va[..., :, None] & vb[..., None, :], K, 0.0)
 
 
+# Bytes of kernel entries the leaf and skeleton assemblies evaluate at once
+# (:func:`_chunks`). Eager torch materializes every temporary of the pair
+# function, and under the Hutchinson gradient's ``jvp`` its tangents too,
+# one per parameter, so the live set is about ten times the entries being
+# evaluated, times the parameters plus one. Unbounded, one f32 Hutchinson
+# evaluation at n = 1e6 (2048 leaves of 489) needs more than an 80 GB
+# card; the n = 1e5 paths (512 leaves of 196: 79 MB in f32, 157 MB in f64)
+# stay one chunk.
+_CHUNK_BYTES = 256 * 2 ** 20
+
+
+def _chunks(count, item_bytes):
+    """Slices of ``count`` items of ``item_bytes`` each, at most
+    ``_CHUNK_BYTES`` a slice (one slice when they all fit)."""
+    size = max(1, _CHUNK_BYTES // item_bytes)
+    return [slice(i, min(i + size, count)) for i in range(0, count, size)]
+
+
+def _cat(parts, dim=0):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+# The dtype of the SMW cascade (the finer-inverse-applied factors, the
+# cores, their inverses and log-determinants, and every level of a solve)
+# and of the skeleton interpolants' ridge systems, whatever the working
+# dtype. The working dtype keeps the bulk: the kernel entries, the leaf
+# grams, the leaf Cholesky kernel and its triangular solves, and the
+# gradient's forward-mode pass. A float32 cascade is not stable at depth:
+# at bench.py's n = 1e6 (11 levels) a float32 GP on an H100 reads a
+# factorization self-check residual of 4e5 and a likelihood 2.5e3 (relative)
+# off bench.py's anchor with it, 3e-3 and 2e-5 with this one
+# (``chip_smoke.py --cascade-dtype``): the SMW cores are ill-conditioned at
+# every level, and the float32 ridge floor (100 eps_f32) also cuts the
+# smooth kernel's interpolants short. The JAX package's TPU has no float64
+# and keeps both in float32.
+_CASCADE = torch.float64
+
+
 def ridge_gram(M, ridge_floor=None):
     """``G = M^T M + lam I`` — the ridge-regularized skeleton gram.
 
@@ -472,8 +521,10 @@ def _lowrank_rows_t(pair_fn, theta, xpad, valid, struct):
     The ridge acts as a smooth truncated pseudo-inverse (couplings are
     often numerically rank-deficient; a QR triangular solve would amplify
     the null directions) and its absolute floor keeps exactly-zero
-    couplings (fully-padded siblings) at 0 instead of NaN. ``xpad`` and
-    ``valid`` hold every padded row (the pivots may lie on any rank's).
+    couplings (fully-padded siblings) at 0 instead of NaN. The ridge
+    systems are solved in ``_CASCADE`` (float64) and the interpolants
+    returned in the working dtype. ``xpad`` and ``valid`` hold every
+    padded row (the pivots may lie on any rank's).
     """
     flat = struct.flat
     if flat is None:
@@ -484,8 +535,8 @@ def _lowrank_rows_t(pair_fn, theta, xpad, valid, struct):
     cp = struct.index("cp_all", dev)
     xI, vI = xpad[rp], valid[rp]                # (P, c, d), (P, c)
     xJ, vJ = xpad[cp], valid[cp]
-    M = _block_matrix(pair_fn, theta, xI, vI, xJ, vJ)       # (P, c, c)
-    G = ridge_gram(M, struct.ridge_floor)
+    M = _block_matrix(pair_fn, theta, xI, vI, xJ, vJ).to(_CASCADE)
+    G = ridge_gram(M, struct.ridge_floor)                    # (P, c, c)
 
     # E[j, t] = k(x[row t], x[pivot j of row t's pair and half]) -> (c, T);
     # by kernel symmetry a right row's K[I, right]^T entries are
@@ -493,10 +544,12 @@ def _lowrank_rows_t(pair_fn, theta, xpad, valid, struct):
     rows = struct.index("rows_loc", dev)
     tab = struct.index("piv_tab", dev)
     pid = struct.index("pid_loc", dev)
-    xa, va = xpad[rows], valid[rows]            # (T, d), (T,)
-    xb, vb = xpad[tab][pid], valid[tab][pid]    # (T, c, d), (T, c)
-    E = pair_fn(theta, xa[None, :, :], xb.transpose(0, 1))
-    E = torch.where(va[None, :] & vb.T, E, 0.0)
+    parts = []
+    for sl in _chunks(rows.shape[0], c * xpad.element_size()):
+        ra, rb = rows[sl], tab[pid[sl]]          # (t,), (t, c)
+        Es = pair_fn(theta, xpad[ra][None, :, :], xpad[rb].transpose(0, 1))
+        parts.append(torch.where(valid[ra][None, :] & valid[rb].T, Es, 0.0))
+    E = _cat(parts, dim=1)
 
     out = []
     po, nloc = flat["pair_offset"], struct.nloc
@@ -511,8 +564,10 @@ def _lowrank_rows_t(pair_fn, theta, xpad, valid, struct):
             # in range(M)): precomputing G^{-1} M^T and multiplying by R
             # later is mathematically identical but numerically injects
             # ~eps/lam null-space noise (design invariant).
-            rhs = torch.einsum("pkc,kps->pcs", Ml, halves[-1])
-            halves[-1] = torch.linalg.solve(Gl, rhs).transpose(0, 1)
+            rhs = torch.einsum("pkc,kps->pcs", Ml,
+                               halves[-1].to(_CASCADE))
+            halves[-1] = torch.linalg.solve(Gl, rhs).transpose(0, 1).to(
+                E.dtype)
         out.append(torch.stack(halves, dim=2).reshape(c, nloc))
     return out
 
@@ -536,9 +591,14 @@ def _core_inv_slogdet(core):
 
 
 def _leaf_cholesky(pair_fn, theta, xb, vb, db):
-    """Batched leaf assemble + Cholesky of ``K_leaf + diag``: the CUDA
-    kernel on a CUDA tensor, the plain recurrence on a CPU tensor."""
-    Kc = _block_matrix(pair_fn, theta, xb, vb, xb, vb) + torch.diag_embed(db)
+    """Batched leaf assemble + Cholesky of ``K_leaf + diag``: the grams
+    assembled in chunks of leaves (:func:`_chunks`), then one launch of
+    the CUDA kernel over all of them on a CUDA tensor (the plain
+    recurrence on a CPU tensor)."""
+    B, m = vb.shape
+    Kc = _cat([_block_matrix(pair_fn, theta, xb[sl], vb[sl], xb[sl], vb[sl])
+               + torch.diag_embed(db[sl])
+               for sl in _chunks(B, m * m * xb.element_size())])
     return _batched_cholesky(Kc)
 
 
@@ -606,7 +666,9 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
     Returns ``(factors, logdet)`` with ``factors = {"Lleaf": (B, m, m),
     "levels": [(Zt, Tt, core_inv), ...]}``: ``Zt`` the raw and ``Tt`` the
     finer-inverse-applied skeleton factors, transposed ``(c_l, n_pad)``,
-    and ``core_inv`` the inverted SMW cores ``(p_l, 2c_l, 2c_l)``.
+    and ``core_inv`` the inverted SMW cores ``(p_l, 2c_l, 2c_l)``. The
+    leaf factors are in the working dtype; the levels and ``logdet`` in
+    ``_CASCADE`` (float64).
 
     On a sharded structure (:meth:`HODLRStructure.set_shard`) the factors
     are this rank's: its leaves, its ``(c_l, nloc)`` rows of each level
@@ -624,7 +686,7 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
     db = _rows(struct, _enter(struct, diag_pad)).reshape(B, m)
     Lleaf = _leaf_cholesky(pair_fn, theta, xb, vb, db)
     logdet = 2.0 * torch.sum(
-        torch.log(torch.diagonal(Lleaf, dim1=-2, dim2=-1))
+        torch.log(torch.diagonal(Lleaf, dim1=-2, dim2=-1)).to(_CASCADE)
     )
     logdet_shared = None    # the cores of levels whose pairs span ranks
 
@@ -633,12 +695,13 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
 
     # --- upward sweep: factor each level, update coarser factors ----------
     # each level's inverse hits ALL coarser levels' factors as one
-    # concatenated multi-RHS application
+    # concatenated multi-RHS application, in _CASCADE from the leaf solve on
     if L:
-        Tcat = _leaf_solve_t(Lleaf, torch.cat(Zs, dim=0))
+        Tcat = _leaf_solve_t(Lleaf, torch.cat(Zs, dim=0)).to(_CASCADE)
         T = list(torch.split(Tcat, [Z.shape[0] for Z in Zs], dim=0))
     else:
         T = []
+    Zs = [Z.to(_CASCADE) for Z in Zs]
     levels_out = [None] * L
     for li in range(L - 1, -1, -1):   # li = level index (0 = root split)
         c = struct.levels[li]["c"]
@@ -674,8 +737,10 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
 
 def _solve_t(factors, struct, Xt):
     """``(K^{-1} X)^T`` on transposed multi-RHS ``Xt (k, n_pad)``:
-    ``D^{-1}`` then ``F_L^{-1} ... F_1^{-1}`` (finest first)."""
-    Xt = _leaf_solve_t(factors["Lleaf"], Xt)
+    ``D^{-1}`` in the leaves' dtype, then ``F_L^{-1} ... F_1^{-1}``
+    (finest first) in ``_CASCADE``, the dtype of the result."""
+    Lleaf = factors["Lleaf"]
+    Xt = _leaf_solve_t(Lleaf, Xt.to(Lleaf.dtype)).to(_CASCADE)
     for li in range(struct.L - 1, -1, -1):
         Zt, Tt, core_inv = factors["levels"][li]
         Xt = _factor_apply_inv_t(Zt, Tt, core_inv, struct, li, Xt)
@@ -692,23 +757,26 @@ def _from_t(Yt, squeeze):
 
 def hodlr_solve(factors, struct, X):
     """``K^{-1} X`` through the factor cascade. ``X``: ``(n_pad,)`` or
-    ``(n_pad, k)`` (this rank's ``nloc`` rows on a sharded structure)."""
+    ``(n_pad, k)`` (this rank's ``nloc`` rows on a sharded structure); the
+    result in ``X``'s dtype."""
     Xt, squeeze = _as_t(X)
-    return _from_t(_solve_t(factors, struct, Xt), squeeze)
+    return _from_t(_solve_t(factors, struct, Xt).to(X.dtype), squeeze)
 
 
 def _matvec_factors_t(factors, struct, Xt):
     """Compressed matvec ``((K_bar + diag) X)^T`` rebuilt from the
     factorization itself, with no kernel re-assembly: the leaf blocks as
-    ``L L^T`` and the raw skeleton factors ``Z = [C, Q]`` per level."""
+    ``L L^T`` (in the leaves' dtype) and the raw skeleton factors ``Z =
+    [C, Q]`` per level; the result in ``_CASCADE``."""
     Lleaf = factors["Lleaf"]
     B, m, _ = Lleaf.shape
     k = Xt.shape[0]
     # X^T K_leaf = (X^T L) L^T per leaf box, long axis minor throughout
-    Xb = Xt.reshape(k, B, m).transpose(0, 1)             # (B, k, m)
+    Xb = Xt.to(Lleaf.dtype).reshape(k, B, m).transpose(0, 1)  # (B, k, m)
     t1 = torch.einsum("bkm,bmn->bkn", Xb, Lleaf)
     Yb = torch.einsum("bkn,bjn->bkj", t1, Lleaf)
-    Yt = Yb.transpose(0, 1).reshape(k, B * m)
+    Yt = Yb.transpose(0, 1).reshape(k, B * m).to(_CASCADE)
+    Xt = Xt.to(_CASCADE)
     for li in range(struct.L):
         Yt = Yt + _coupling_t(factors["levels"][li][0], Xt, struct, li)
     return Yt
@@ -725,7 +793,8 @@ def hodlr_matvec_factors(factors, struct, X):
     """``(K_bar + diag) X`` from the factors (see
     :func:`_matvec_factors_t`)."""
     Xt, squeeze = _as_t(X)
-    return _from_t(_matvec_factors_t(factors, struct, Xt), squeeze)
+    return _from_t(_matvec_factors_t(factors, struct, Xt).to(X.dtype),
+                   squeeze)
 
 
 def _matvec_t(pair_fn, theta, xpad, valid, diag_pad, struct, Xt,
@@ -740,14 +809,18 @@ def _matvec_t(pair_fn, theta, xpad, valid, diag_pad, struct, Xt,
     theta = _enter(struct, theta)
     xb = _rows(struct, xpad).reshape(B, m, -1)
     vb = _rows(struct, valid).reshape(B, m)
-    Kc = _block_matrix(pair_fn, theta, xb, vb, xb, vb)
     if include_diag:
-        Kc = Kc + torch.diag_embed(
-            _rows(struct, _enter(struct, diag_pad)).reshape(B, m))
-    # X^T K (K symmetric): contract the row index, minor stays long
+        db = _rows(struct, _enter(struct, diag_pad)).reshape(B, m)
+    # X^T K (K symmetric): contract the row index, minor stays long; the
+    # leaf grams assembled and applied a chunk of leaves at a time
     Xl = Xt.reshape(k, B, m).transpose(0, 1)             # (B, k, m)
-    Yb = torch.einsum("bki,bij->bkj", Xl, Kc)
-    Yt = Yb.transpose(0, 1).reshape(k, struct.nloc)
+    parts = []
+    for sl in _chunks(B, m * m * xb.element_size()):
+        Kc = _block_matrix(pair_fn, theta, xb[sl], vb[sl], xb[sl], vb[sl])
+        if include_diag:
+            Kc = Kc + torch.diag_embed(db[sl])
+        parts.append(torch.einsum("bki,bij->bkj", Xl[sl], Kc))
+    Yt = _cat(parts).transpose(0, 1).reshape(k, struct.nloc)
     for li, Zt in enumerate(
             _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)):
         Yt = Yt + _coupling_t(Zt, Xt, struct, li)
@@ -798,7 +871,7 @@ def hodlr_solve_refined(pair_fn, theta, xpad, valid, diag_pad, struct,
         lambda V: _matvec_factors_t(factors, struct, V),
         Xt, steps, lambda x: _rowsum(struct, x),
     )
-    return _from_t(Z, squeeze)
+    return _from_t(Z.to(X.dtype), squeeze)
 
 
 def dK_products(pair_fn, theta, xpad, valid, diag_pad, struct, Vt):
@@ -925,9 +998,11 @@ def hodlr_loglike_and_grad_hutchinson(
             )
         else:
             sol = solve(rhs)
-        alpha, Kinv_u = sol[0], sol[1:]
-        quad = rowsum(torch.dot(r_pad, alpha))
-        ll = -0.5 * (quad + logdet + n * _LOG_2PI)
+        # the solves and the likelihood in _CASCADE; the forward-mode
+        # pass and the gradient's contractions in the working dtype
+        quad = rowsum(torch.dot(r_pad.to(sol.dtype), sol[0]))
+        ll = (-0.5 * (quad + logdet + n * _LOG_2PI)).to(dtype)
+        alpha, Kinv_u = sol[0].to(dtype), sol[1:].to(dtype)
         av = torch.cat([alpha[None, :], probes], dim=0)
 
     dK_av_t = dK_products(pair_fn, theta, xpad, valid, diag_pad, struct,
@@ -1166,9 +1241,10 @@ class HODLRSolver(object):
     :param seed: pivot RNG seed.
     :param sort: Morton-sort inputs host-side for compressibility (on the
         kernel's ``sort_axes`` where it has them, as ``LCMKernel`` does).
-    :param verbose: print the ``hodlr.compute`` span (it is registered in
-        ``diagnostics`` either way) and, under ``debug``, the self-check's
-        numbers.
+    :param verbose: print the ``hodlr.aca_pivots`` (the host ACA walk),
+        ``hodlr.compute`` (the factorization) and ``hodlr.self_check``
+        spans (they are registered in ``diagnostics`` either way) and,
+        under ``debug``, the self-check's numbers.
     :param debug: run the factorization self-check on every compute and
         measure the compression error against the exact kernel; a GP with
         a matrix-free gradient also compares it with the dense one.
@@ -1329,8 +1405,10 @@ class HODLRSolver(object):
             # kernel-adaptive skeletons at the compute-time theta, chosen
             # on the host in float64 (see select_aca_pivots); the
             # factorization stays exact-in-theta for autograd
-            select_aca_pivots(self.kernel.pair_fn,
-                              self.kernel.parameter_vector, xpad, valid, st)
+            with timer("hodlr.aca_pivots", verbose=self.verbose):
+                select_aca_pivots(self.kernel.pair_fn,
+                                  self.kernel.parameter_vector, xpad, valid,
+                                  st)
         diag_pad = np.ones(st.n_pad)
         diag_pad[:n] = yerr2[self._perm]
         self._shard = self._split_rows(st)
@@ -1364,7 +1442,8 @@ class HODLRSolver(object):
             self._sym_theta = np.array(self.kernel.parameter_vector)
         self.log_determinant = float(logdet)
         self.computed = True
-        self._factorization_self_check()
+        with timer("hodlr.self_check", verbose=self.verbose):
+            self._factorization_self_check()
 
     def _split_rows(self, st):
         """Split ``st``'s rows over the mesh (``None``: unsharded). Every
@@ -1503,9 +1582,9 @@ class HODLRSolver(object):
             for _ in range(self._refine_eff):
                 R = Yt - _matvec_t(self.kernel.pair_fn, self._theta,
                                    self._xpad, self._valid, self._diag_pad,
-                                   st, Z)
+                                   st, Z.to(Yt.dtype))
                 Z = Z + self._base_solve_t(self._factors, R)
-            return self._gather(Z.T)
+            return self._gather(Z.T.to(Yt.dtype))
 
     # -- pure fused surface -------------------------------------------------
 
@@ -1529,7 +1608,7 @@ class HODLRSolver(object):
             r_pad = _rows(st, _enter(st, r_pad))
             z = hodlr_solve(factors, st, r_pad)
             quad = _rowsum(st, torch.dot(r_pad, z))
-            return -0.5 * (quad + logdet + n * _LOG_2PI)
+            return (-0.5 * (quad + logdet + n * _LOG_2PI)).to(r_pad.dtype)
 
         return loglike
 
