@@ -23,7 +23,8 @@ sizes the project benchmarks:
   pivots, and the multi-output LCM model at n = 1e5; sampler checkpoints;
 * the strong-admissibility H-matrix solver at the 2-D configuration of
   ``benchmarks/bench_hmatrix.py`` (``ExpSquaredKernel([1.5, 1.5])``,
-  ``min_size`` 64, rank 16) up to n = 1e5;
+  ``min_size`` 64, rank 16) up to n = 1e5, fitted there (reverse mode,
+  the samplers' evaluator, ``minimize``) in float32;
 * ``parallel`` and the solvers' ``mesh=`` on 2 ranks sharing the card;
 * the eight examples through their PyTorch twins.
 
@@ -94,12 +95,21 @@ Phases:
     n = 4000 in float64 and float32 against the recorded dense truth and
     the dense float64 solver on the card; (b) n = 16000: likelihoods and
     the 32-probe Hutchinson gradient against the dense float64 ones,
+    the reverse-mode ``log_prob_fn`` gradient against the dense float64
+    one in float64 and float32 with the near field stored and on the fly,
     ``GP.sample``, ``apply_sqrt`` twice against the matvec, and
     ``log_prob_fn`` over 2 chains in float32 under the samplers' batched
     evaluator; (c) n = 1e5 in float32 then float64: compute with its stage
-    breakdown, the likelihood first and repeated, ``dot_solve``, CG
-    iterations, peak memory, the near field's bytes, a profile of one
-    ``dot_solve``, and the two dtypes' likelihoods against each other; (d)
+    breakdown, the likelihood (float32 first and repeated, float64 once),
+    ``dot_solve`` (float32), CG iterations, peak memory, the near field's
+    bytes, a profile of one ``dot_solve``, and the two dtypes' likelihoods
+    against each other; (f) the fit path at n = 1e5 in float32 on (c)'s
+    data, after (c): ``GP.grad_log_likelihood`` (32 probes), one
+    ``log_prob_fn`` value and reverse-mode gradient with its per-stage
+    memory trace (the value against ``gp.log_likelihood``, the gradient
+    against ``grad_log_likelihood``), 2 chains through the samplers'
+    batched evaluator against their unbatched evaluations, and
+    ``minimize`` for 2 iterations; (d)
     ``examples/spatial.py``'s assertions at n = 2000 beside the weak HODLR
     solver, through the port's twin; (e) the float64 1-D whitener on the
     smooth dataset at n = 2e4 against the dense solver, with the leaf
@@ -121,9 +131,9 @@ Phases:
     anchor and the one-rank ``sym=True`` run (log-determinant,
     ``apply_sqrt``, ``apply_inverse_sym_W``, ``GP.sample``, the exact
     gradient) and (h) ``SparseSolver(mesh=)``'s ``log_prob_fn`` on
-    bench_dia's data (n = 2e5): float64 against the one-rank iterative
-    run, float32 under ``vmap`` over 2 chains against phase 7's direct
-    float64 values. Each rank counts its own launches;
+    bench_dia's data at n = 5e4: float64 against the one-rank iterative
+    run, float32 under ``vmap`` over 2 chains against the direct float64
+    path at that n. Each rank counts its own launches;
 18. the examples' PyTorch twins (``george_tpu_torch.examples``) on the
     card, each through its ``main`` with the launch counts set to 0
     before it: every twin at its default size, ``scaling`` also at
@@ -161,7 +171,10 @@ own, to compare two versions on one card. ``python3 chip_smoke.py
 evaluation with the assemblies' chunk budget at its default and lifted
 (``unchunked_peak``); ``python3 chip_smoke.py --cascade-dtype`` runs the
 float32 n = 1e6 GP with the HODLR cascade in float32 and in float64
-(``cascade_dtype``).
+(``cascade_dtype``); ``python3 chip_smoke.py --hmatrix-memory`` prints the
+per-stage device memory of one H-matrix ``log_prob_fn`` value and
+gradient at n = 16000 and 1e5, rematerialized and through plain autograd
+(``hmatrix_memory``).
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -205,10 +218,11 @@ N_DIA = 200_000
 # NUTS warmup and sample steps per dtype. bench_nuts's 200 + 200 took
 # 1227 s in float64 alone on an H100 (57,698 batched leapfrog steps of
 # 21 ms, host-bound), past this script's time limit, so
-# the path runs 10 + 10 here (NUTS_STEPS = 200 is the full configuration;
+# the path runs 6 + 6 here (NUTS_STEPS = 200 is the full configuration;
 # 25 + 25 until phase 17 added two more float64 runs of it, 15 + 15 until
-# phase 17 (g), (h) and phase 18 took the script to 885 s of its 1200)
-NUTS_STEPS = 10
+# phase 17 (g), (h) and phase 18 took the script to 885 s of its 1200,
+# 10 + 10 until phase 16 (f) took it to 1086 s)
+NUTS_STEPS = 6
 # benchmarks/bench_hmatrix.py: its headline n, and its recorded CPU-float64
 # dense likelihoods of the seed-3 datasets at n = 4000 and 16000
 N_HM = 100_000
@@ -1502,7 +1516,8 @@ BENCH_LEAVES = {"smooth_1e6_f32": (2048, 489, 489, "float32"),
                 "qp_1e5_f64": (512, 196, 196, "float64"),
                 "baseline_row3": (64, 157, 157, "float64")}
 # repeats of bench.py's 16-theta protocol at n = 1e6 and at qp n = 1e5
-BENCH_REPEATS = 3
+# (3 until phase 16 (f) needed the room)
+BENCH_REPEATS = 2
 # (b): the float32 Hutchinson gradient at n = 1e6 against the float64 one
 # on the same pivots and probes, as a share of max|g|. Both packages sit
 # near 4e-2 on a CPU rig of the same depth; a broken float32 cascade (at
@@ -2232,7 +2247,7 @@ def phase_hmatrix_16k(device, n=16000, sqrt_steps=HM_SQRT_STEPS):
                 " vs apply_forward, max|d| of max|Kv|"
                 % (sqrt_steps, res["apply_sqrt_twice_s"]),
                 float(np.abs(SSv - Kv).max() / np.abs(Kv).max()), 1e-5)
-        del gp
+        gps = {True: gp}
         gph = hmatrix_gp(device, dtype, num_probes=32)
         gph.compute(x, yerr)
         sync(device)
@@ -2250,6 +2265,39 @@ def phase_hmatrix_16k(device, n=16000, sqrt_steps=HM_SQRT_STEPS):
                res["grad_s"], np.array2string(g)),
             float(np.abs(g - g_dense).max()) / scale, 0.1)
         del gph
+        # the fused likelihood's reverse-mode gradient (the SLQ adjoint and
+        # the implicit solve adjoint) at the computed parameters, on the
+        # near field stored and on the fly
+        gps[False] = hmatrix_gp(device, dtype, store_near=False)
+        gps[False].compute(x, yerr)
+        for store in (True, False):
+            key = "log_prob_grad_" + ("stored" if store else "on_the_fly")
+            gpl = gps.pop(store)
+            if (gpl.solver._near is not None) != store:
+                raise RuntimeError("hmatrix (b): the near field is not %s"
+                                   % ("stored" if store else "on the fly"))
+            lp = gpl.log_prob_fn(x, y, yerr, gate_prior=False)
+            th = torch.as_tensor(gpl.get_parameter_vector(), device=device,
+                                 dtype=dtype)
+            torch.cuda.reset_peak_memory_stats()
+            sync(device)
+            t0 = time.perf_counter()
+            gl, _ = torch.func.grad_and_value(lp)(th)
+            sync(device)
+            gl = gl.double().cpu().numpy()
+            res[key] = {"seconds": time.perf_counter() - t0,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "grad": gl.tolist()}
+            res[key]["rel"] = _gate(
+                "hmatrix (b) %s log_prob_fn reverse-mode gradient, near "
+                "field %s (%.3f s, peak %.3f GB) %s vs dense, max|d| / "
+                "max|g|"
+                % (name, "stored" if store else "on the fly",
+                   res[key]["seconds"], res[key]["peak_gb"],
+                   np.array2string(gl)),
+                float(np.abs(gl - g_dense).max()) / scale, 0.1)
+            del gpl, lp
+            torch.cuda.empty_cache()
         out[name] = res
 
     # log_prob_fn over 2 chains, float32, through the samplers' evaluator
@@ -2339,10 +2387,11 @@ def phase_hmatrix_headline(device, n, dtype):
     bytes, and a profile of one dot_solve cut to ``HM_PROFILE_ITERS`` CG
     iterations.
 
-    float64 runs a shortened protocol: one repeated likelihood and one
-    dot_solve (a float64 solve here takes 138 CG iterations of 106 ms on
-    an H100; bench_hmatrix's 3 + 5 would take the phase past its share of
-    the script's time)."""
+    float32 times one repeated likelihood and the best of 2 ``dot_solve``
+    calls, float64 the first likelihood only (a float64 solve here takes
+    138 CG iterations of 106 ms on an H100): bench_hmatrix's 3 repeated
+    likelihoods and 5 ``dot_solve`` calls repeat one solve, and with
+    phase 16 (f) they would take the script past its time limit."""
     import torch
     from george_tpu_torch import diagnostics
 
@@ -2381,26 +2430,24 @@ def phase_hmatrix_headline(device, n, dtype):
     ll = gp.log_likelihood(y)
     out["loglike_s_first"] = time.perf_counter() - t0
     out["ll"] = ll
-    times = []
-    for k in range(3 if full else 1):
+    out["loglike_s_repeat"] = out["solve_s"] = None
+    if full:
         t0 = time.perf_counter()
-        gp.log_likelihood(y + 1e-6 * (k + 1))
-        times.append(time.perf_counter() - t0)
-    out["loglike_s_repeat"] = min(times)
-    times = []
-    for k in range(5 if full else 1):
-        yk = y + 1e-6 * k
-        t0 = time.perf_counter()
-        s.dot_solve(yk)
-        times.append(time.perf_counter() - t0)
-    out["solve_s"] = min(times)
+        gp.log_likelihood(y + 1e-6)
+        out["loglike_s_repeat"] = time.perf_counter() - t0
+        times = []
+        for k in range(2):
+            t0 = time.perf_counter()
+            s.dot_solve(y + 1e-6 * k)
+            times.append(time.perf_counter() - t0)
+        out["solve_s"] = min(times)
     out["cg_iters"] = s.last_cg_iters
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log("hmatrix (c) %s: ll %.6f, log_likelihood first %.4f s, repeated "
-        "%.4f s (best of %d), dot_solve %.4f s (best of %d), CG iterations "
-        "%d, peak device memory %.3f GB"
-        % (name, ll, out["loglike_s_first"], out["loglike_s_repeat"],
-           3 if full else 1, out["solve_s"], 5 if full else 1,
+        "%s, dot_solve %s (best of 2), CG iterations %d, peak device "
+        "memory %.3f GB"
+        % (name, ll, out["loglike_s_first"],
+           _secs(out["loglike_s_repeat"]), _secs(out["solve_s"]),
            out["cg_iters"], out["peak_gb"]))
     if not np.isfinite(ll):
         raise RuntimeError("hmatrix (c) %s: non-finite likelihood" % name)
@@ -2423,6 +2470,283 @@ def phase_hmatrix_headline(device, n, dtype):
             % (name, HM_PROFILE_ITERS))
     finally:
         s.maxiter = maxiter
+    return out
+
+
+def _secs(v):
+    return "not run" if v is None else "%.4f s" % v
+
+
+def memory_trace(label, device, evaluate):
+    """``evaluate()`` under ``diagnostics.memory_trace``: the device memory
+    of each stage of the H-matrix likelihood (``hmatrix.ll.parts``, the
+    forward PCG ``hmatrix.ll.pcg`` and SLQ ``hmatrix.ll.slq``,
+    ``hmatrix.quad.backward``, ``hmatrix.logdet.backward``,
+    ``hmatrix.compress.backward`` and ``hmatrix.near.backward``) and of
+    the stages ``evaluate`` opens
+    itself, one line each, in the order they close: bytes allocated at its
+    start and end and the peak while it ran, nested stages included. An
+    out-of-memory error is printed with the stages that closed before it
+    and raised. Returns ``(evaluate(), records)``."""
+    import torch
+    from george_tpu_torch import diagnostics
+
+    torch.cuda.empty_cache()
+    with diagnostics.memory_trace(device) as rec:
+        try:
+            return evaluate(), rec
+        finally:
+            for r in rec:
+                log("%s memory: %-60s %8.3f s  start %s  end %s  peak %s"
+                    % (label, r["stage"], r["seconds"], _gb(r["start_gb"]),
+                       _gb(r["end_gb"]), _gb(r["peak_gb"])))
+
+
+def _gb(v):
+    return "not measured" if v is None else "%.3f GB" % v
+
+
+def _staged_grad_and_value(log_prob, theta):
+    """``torch.func.grad_and_value(log_prob)(theta)``, as ``minimize`` and
+    the samplers call it, in a ``grad_and_value`` stage with the forward
+    pass in a ``forward`` stage inside it: what the backward pass runs
+    outside the solver's own stages (in plain autograd, the far
+    compression's graph) shows in ``grad_and_value``'s peak."""
+    import torch
+    from george_tpu_torch import diagnostics
+
+    def staged(th):
+        with diagnostics.memory_stage("forward"):
+            return log_prob(th)
+
+    with diagnostics.memory_stage("grad_and_value"):
+        return torch.func.grad_and_value(staged)(theta)
+
+
+def _plain_parts(solver):
+    """Route ``solver``'s fused-likelihood parts through plain autograd
+    over ``hmatrix_compress`` and ``hmatrix_near_values`` (the outer graph
+    keeps every intermediate of the far compression and of the stored near
+    field, and the log-determinant's adjoint builds them a second time):
+    the layout before they were rematerialized, for
+    ``--hmatrix-memory``."""
+    from george_tpu_torch.solvers import hmatrix as HM
+
+    def parts(theta):
+        far = HM.hmatrix_compress(solver.kernel.pair_fn, theta,
+                                  solver._xpad, solver._valid, solver._hs,
+                                  ridge_floor=solver.tol_abs)
+        out = [t for cq in far for t in cq]
+        if solver._near is not None:
+            out.extend(HM.hmatrix_near_values(solver.kernel.pair_fn, theta,
+                                              solver._xpad, solver._valid,
+                                              solver._hs))
+        return tuple(out)
+
+    solver._parts = parts
+
+
+def hmatrix_memory(device="cuda"):
+    """``--hmatrix-memory``: the per-stage device memory of one
+    ``log_prob_fn`` value and gradient through ``torch.func.grad_and_value``
+    (float32, at the computed parameters) with the far factors and the
+    stored near field rematerialized (``_FarFactors``, ``_NearValues``:
+    the solver as it is) and through plain autograd (``_plain_parts``): at
+    bench_hmatrix's n = 16000 with the near field stored and on the fly,
+    then at n = 1e5 (on the fly). An evaluation that runs out of memory is
+    printed with the stages that closed before it. One evaluation at
+    n = 16000 runs first, untraced, so that no trace pays the process's
+    first-call costs."""
+    import torch
+
+    smi = phase_device()
+    phase_build()
+    x, y, yerr = hmatrix_dataset(16000, 3)
+    gp = hmatrix_gp(device, torch.float32)
+    gp.compute(x, yerr)
+    torch.func.grad_and_value(gp.log_prob_fn(x, y, yerr, gate_prior=False))(
+        torch.as_tensor(gp.get_parameter_vector(), device=device,
+                        dtype=torch.float32))
+    del gp
+    out = {}
+    for n, seed, stores in ((16000, 3, (True, False)), (N_HM, 7, (False,))):
+        x, y, yerr = hmatrix_dataset(n, seed)
+        for store in stores:
+            gp = hmatrix_gp(device, torch.float32, store_near=store)
+            gp.compute(x, yerr)
+            theta = torch.as_tensor(gp.get_parameter_vector(),
+                                    device=device, dtype=torch.float32)
+            for variant in ("rematerialized", "plain autograd"):
+                if variant == "plain autograd":
+                    _plain_parts(gp.solver)
+                lp = gp.log_prob_fn(x, y, yerr, gate_prior=False)
+                key = "n=%d %s %s" % (
+                    n, "stored" if store else "on the fly", variant)
+                sync(device)
+                t0 = time.perf_counter()
+                try:
+                    (g, v), rec = memory_trace(
+                        key, device,
+                        lambda: _staged_grad_and_value(lp, theta))
+                    res = {"seconds": time.perf_counter() - t0,
+                           "value": float(v),
+                           "grad": g.double().cpu().numpy().tolist()}
+                except torch.cuda.OutOfMemoryError as e:
+                    res = {"out_of_memory": str(e).splitlines()[0]}
+                out[key] = res
+                log("hmatrix memory, %s on %s: %s" % (key, smi,
+                                                       json.dumps(res)))
+                del lp
+                torch.cuda.empty_cache()
+            del gp
+            torch.cuda.empty_cache()
+    log(smi)
+    print(json.dumps({"hmatrix_memory": out, "device": smi}), flush=True)
+
+
+def _recording_minimize():
+    """``scipy.optimize.minimize`` wrapped to record each value of the
+    objective it is handed: ``(values, restore)``."""
+    import scipy.optimize
+
+    values = []
+    original = scipy.optimize.minimize
+
+    def recording(fun, x0, **kwargs):
+        def wrapped(v):
+            f, g = fun(v)
+            values.append(float(f))
+            return f, g
+
+        return original(wrapped, x0, **kwargs)
+
+    scipy.optimize.minimize = recording
+
+    def restore():
+        scipy.optimize.minimize = original
+
+    return values, restore
+
+
+def phase_hmatrix_fit(device, card, n=N_HM):
+    """(f) the fit path at bench_hmatrix's n = 1e5, float32, on (c)'s
+    dataset (seed 7) and solver, 32 probes: (1) ``GP.grad_log_likelihood``
+    (the deflated Hutchinson estimator, one ``jvp`` per parameter); (2) one
+    unbatched ``log_prob_fn`` value and gradient at the computed
+    parameters with its per-stage memory trace, the value against
+    ``gp.log_likelihood`` (1e-6) and the gradient against (1) (0.1 of
+    max|g|); (3) two chains at the computed parameters plus 0.01 noise
+    through the samplers' batched evaluator, each against its unbatched
+    evaluation (1e-5 in the value, 1e-3 of max|g| in the gradient); (4)
+    ``minimize`` for 2 iterations, ending finite and no higher than it
+    started. Every time is printed beside ``card``."""
+    import torch
+    from george_tpu_torch.sampling import hmc, minimize
+
+    x, y, yerr = hmatrix_dataset(n, 7)
+    gp = hmatrix_gp(device, torch.float32, num_probes=32)
+    sync(device)
+    t0 = time.perf_counter()
+    gp.compute(x, yerr)
+    sync(device)
+    out = {"compute_s": time.perf_counter() - t0}
+    s = gp.solver
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g_h = gp.grad_log_likelihood(y)
+    sync(device)
+    out["hutchinson"] = {
+        "seconds": time.perf_counter() - t0, "grad": g_h.tolist(),
+        "cg_iters": s.last_cg_iters,
+        "deflation_rank": int(s._grad_deflation_basis().shape[1]),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("hmatrix (f) n=%d f32 on %s: grad_log_likelihood %s (32 probes, "
+        "deflation rank %d, CG %d) %.3f s, peak %.3f GB"
+        % (n, card, np.array2string(g_h),
+           out["hutchinson"]["deflation_rank"],
+           out["hutchinson"]["cg_iters"], out["hutchinson"]["seconds"],
+           out["hutchinson"]["peak_gb"]))
+    scale = float(np.abs(g_h).max())
+
+    ll = gp.log_likelihood(y)
+    log_prob = gp.log_prob_fn(x, y, yerr, gate_prior=False)
+    truth = gp.get_parameter_vector()
+    theta = torch.as_tensor(truth, device=device, dtype=torch.float32)
+    single = torch.func.grad_and_value(log_prob)
+    torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    (g1, v1), rec = memory_trace(
+        "hmatrix (f)", device, lambda: _staged_grad_and_value(log_prob,
+                                                              theta))
+    sync(device)
+    g1 = g1.double().cpu().numpy()
+    ev = {"seconds": time.perf_counter() - t0, "value": float(v1),
+          "grad": g1.tolist(), "peak_gb": rec[-1]["peak_gb"],
+          "stages": rec}
+    ev["value_rel"] = _gate(
+        "hmatrix (f) log_prob_fn value %.6f vs gp.log_likelihood %.6f, rel"
+        % (ev["value"], ll), abs(ev["value"] - ll) / abs(ll), 1e-6)
+    ev["grad_rel"] = _gate(
+        "hmatrix (f) log_prob_fn reverse-mode gradient %s (%.3f s, peak "
+        "%s on %s) vs grad_log_likelihood, max|d| / max|g|"
+        % (np.array2string(g1), ev["seconds"], _gb(ev["peak_gb"]), card),
+        float(np.abs(g1 - g_h).max()) / scale, 0.1)
+    out["value_and_grad"] = ev
+
+    thetas = torch.as_tensor(
+        truth[None, :] + 0.01 * np.random.default_rng(5).standard_normal(
+            (2, len(truth))), device=device, dtype=torch.float32)
+    value_and_grad = hmc._make_value_and_grad(log_prob)
+    torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    lp, g = value_and_grad(thetas)
+    sync(device)
+    ch = {"seconds": time.perf_counter() - t0,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "rel": []}
+    for c in range(2):
+        gc, vc = single(thetas[c])
+        r = {"value": abs(float(lp[c]) - float(vc)) / abs(float(vc)),
+             "grad": float((g[c] - gc).abs().max() / gc.abs().max())}
+        ch["rel"].append(r)
+        log("hmatrix (f) chain %d: batched vs unbatched value %.6f, rel "
+            "%.3e (limit 1e-5); gradient %s, max|d| %.3e of max|g| (limit "
+            "1e-3)" % (c, float(vc), r["value"],
+                       np.array2string(gc.cpu().numpy()), r["grad"]))
+    log("hmatrix (f) 2 chains through the samplers' batched evaluator on "
+        "%s: %.3f s, peak %.3f GB" % (card, ch["seconds"], ch["peak_gb"]))
+    if not all(r["value"] <= 1e-5 and r["grad"] <= 1e-3 for r in ch["rel"]):
+        raise RuntimeError("hmatrix (f): batched and unbatched chains "
+                           "disagree")
+    out["chains"] = ch
+    del value_and_grad, log_prob, single
+
+    values, restore = _recording_minimize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = minimize(gp, y, options={"maxiter": 2})
+    finally:
+        restore()
+    sync(device)
+    mn = {"seconds": time.perf_counter() - t0, "evaluations": len(values),
+          "start": truth.tolist(), "end": np.asarray(res.x).tolist(),
+          "start_objective": values[0], "end_objective": float(res.fun),
+          "nit": int(res.nit),
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log("hmatrix (f) minimize(maxiter=2) on %s: %d evaluations, %.3f s, "
+        "peak %.3f GB; parameters %s -> %s; objective %.6f -> %.6f"
+        % (card, mn["evaluations"], mn["seconds"], mn["peak_gb"],
+           np.array2string(np.asarray(mn["start"])),
+           np.array2string(np.asarray(mn["end"])), mn["start_objective"],
+           mn["end_objective"]))
+    if not (np.isfinite(mn["end_objective"])
+            and mn["end_objective"] <= mn["start_objective"]):
+        raise RuntimeError("hmatrix (f): minimize ended at %r from %r"
+                           % (mn["end_objective"], mn["start_objective"]))
+    out["minimize"] = mn
     return out
 
 
@@ -2489,8 +2813,9 @@ def phase_hmatrix_sym_1d(device, n=20_000):
     return out
 
 
-def phase_hmatrix(device):
-    """Phase 16: (a) to (e); (c) float32 then float64 at n = 1e5. Each
+def phase_hmatrix(device, card):
+    """Phase 16: (a) to (f); (c) float32 then float64 at n = 1e5, (f) the
+    fit path at n = 1e5 after it, its times beside ``card``. Each
     part's seconds are in ``out["seconds"]``. The leaf kernel's launches
     are counted apart for (a) to (d), where only the weak HODLR comparison
     of (d) launches it, and for (e), the H-matrix solver's own whitener:
@@ -2520,6 +2845,7 @@ def phase_hmatrix(device):
         abs(c["float32"]["ll"] - c["float64"]["ll"])
         / abs(c["float64"]["ll"]), 1e-3)
     out["c"] = c
+    out["f"] = run("f", phase_hmatrix_fit, device, card)
     out["d"] = run("d", phase_hmatrix_spatial, device)
     launches = {"weak_comparison": chol.chol_kernel_launches}
     chol.chol_kernel_launches = 0
@@ -2587,7 +2913,7 @@ P17_T_HODLR = 8192
 # each solver's test points: HODLR's is host numpy over 6.5 GB of cross
 # covariances at all 8192, the sparse one a CG as long as a rank's
 P17_REF_STRIDE = {"hodlr": 8, "sparse": 4, "hmatrix": 1}
-P17_T_SPARSE = 1024
+P17_T_SPARSE = 512
 P17_T_HM = 1024
 P17_N_HM = 16_000
 P17_API_CUT = 20_000
@@ -2601,8 +2927,12 @@ P17_NUTS_KW = dict(max_depth=8, target_accept=0.8, dense_mass=True,
 P17_SYM_ROWS = 8
 P17_SAMPLE_SEED = 31
 # (h): the log_prob chains of the vmap, as shifts of the computed
-# parameters (log_rc, log_M)
+# parameters (log_rc, log_M); and its size, a quarter of bench_dia's n at
+# its density, for both dtypes and their one-rank references (at the full
+# n its float64 value and gradient took 72.5 s a rank through gloo on an
+# H100 and its float32 chains 75.0 s, and phase 16 (f) needed the room)
 P17_LP_SHIFTS = [[0.0, 0.0], [0.05, -0.05]]
+P17_N_LP = N_DIA // 4
 
 
 def _max_rel(a, b):
@@ -2923,12 +3253,13 @@ def _p17_mesh_sym(mesh):
 
 
 def _p17_sparse_lp_gp(mesh, dtype):
-    """(h)'s GP: bench_dia's data (n = 2e5, seed 0) through the iterative
-    sparse solver (``direct=False``), rows split over ``mesh`` (``None``:
-    one rank), computed; with ``y``, ``yerr`` and the compute seconds."""
+    """(h)'s GP: bench_dia's data (seed 0) at ``P17_N_LP`` through the
+    iterative sparse solver (``direct=False``), rows split over ``mesh``
+    (``None``: one rank), computed; with ``y``, ``yerr`` and the compute
+    seconds."""
     import george_tpu_torch as gtt
 
-    x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
+    x, _, y, yerr, kernel = bench_dia_dataset(P17_N_LP)
     gp = gtt.GP(kernel, solver=gtt.SparseSolver, direct=False, mesh=mesh,
                 device="cuda", dtype=dtype)
     sync("cuda")
@@ -2969,10 +3300,10 @@ def _p17_sparse_lp_eval(gp, x, y, yerr, dtype, chains):
 
 def _p17_sparse_log_prob(mesh):
     """(h) on this rank: ``SparseSolver(mesh=).loglike_fn`` through
-    ``GP.log_prob_fn`` on bench_dia's data, float64 (one call) then
-    float32 (one ``vmap`` over 2 chains; each chain's CG and SLQ run one
-    after another, so this is twice a call), with seconds, peak memory and
-    launches of each."""
+    ``GP.log_prob_fn`` on bench_dia's data at ``P17_N_LP``, float64 (one
+    call) then float32 (one ``vmap`` over 2 chains; each chain's CG and
+    SLQ run one after another, so this is twice a call), with seconds,
+    peak memory and launches of each."""
     import torch
 
     out = {}
@@ -3174,24 +3505,23 @@ def _p17_spawn(world, tasks, backend=None):
     return [results[r] for r in range(world)]
 
 
-def phase_parallel(device, nuts_ref=None, sparse_ref=None):
+def phase_parallel(device, nuts_ref=None):
     """Phase 17: (a) the kernel API; (b)-(d), (g) and (h) on 2 gloo ranks
     sharing the card, against one-rank references computed here first;
     (e) a one-rank NCCL group running (c)'s HODLR case; (f) the port's dry
     run (``entry.dryrun_multichip``) on the card. ``nuts_ref`` is phase
     11's float64 ``(samples, stats, samples_per_sec)`` at ``NUTS_STEPS``
-    (8 chains in one batch), reported beside (d)'s check when given;
-    ``sparse_ref`` is phase 7's direct float64 result, which (h)'s float32
-    run is held to (computed here when not given)."""
+    (8 chains in one batch), reported beside (d)'s check when given.
+    (h)'s float32 run is held to the direct float64 path at ``P17_N_LP``,
+    computed here first."""
     import torch
     import torch.distributed as dist
     from george_tpu_torch import parallel
     from george_tpu_torch.sampling import run_ensemble
 
     t_phase = time.perf_counter()
-    if sparse_ref is None:
-        x, _, y, yerr, kernel = bench_dia_dataset(N_DIA)
-        sparse_ref = phase_sparse_direct((x, y, yerr, kernel))["float64"]
+    x, _, y, yerr, kernel = bench_dia_dataset(P17_N_LP)
+    sparse_ref = phase_sparse_direct((x, y, yerr, kernel))["float64"]
     out = {"kernels": _p17_kernel_shapes()}
     torch.cuda.empty_cache()
     out["a"] = phase_kernel_api(device)
@@ -3530,15 +3860,16 @@ def _p17_check_sym(ranks, ref):
 
 
 def _p17_check_sparse_lp(ranks, ref, sparse_ref):
-    """(h): each rank's ``SparseSolver(mesh=)`` ``log_prob_fn``: float64
-    value and gradient against the one-rank iterative run (same probes,
-    1e-8 relative); float32 against phase 7's direct float64 values at
-    phase 9's estimator bounds (quadratic term 1e-3, log-determinant 3%,
-    gradient 0.15 each) through the first chain of its ``vmap`` over 2
-    chains, and every chain finite. (The ``vmap`` against unbatched calls
+    """(h): each rank's ``SparseSolver(mesh=)`` ``log_prob_fn`` at
+    ``P17_N_LP``: float64 value and gradient against the one-rank
+    iterative run (same probes, 1e-8 relative); float32 against the
+    direct float64 path at that n at phase 9's estimator bounds
+    (quadratic term 1e-3, log-determinant 3%, gradient 0.15 each) through
+    the first chain of its ``vmap`` over 2 chains, and every chain
+    finite. (The ``vmap`` against unbatched calls
     is held on the CPU, ``tests/test_torch_parallel.py``.)"""
     one = ref["sparse_lp"]
-    n = N_DIA
+    n = P17_N_LP
     out = {"reference_s": ref["sparse_lp_s"],
            "reference_value_grad_s": one["seconds"]}
     for r, res in enumerate(ranks):
@@ -3985,7 +4316,7 @@ def main():
     # the strong-admissibility H-matrix solver; the leaf kernel runs in its
     # float64 1-D whitener and in the weak solver it is compared with
     chol.chol_kernel_launches = 0
-    hm = phase_hmatrix(device)
+    hm = phase_hmatrix(device, smi)
     launches_hm = hm["launches"]
     log("hmatrix: leaf Cholesky kernel launches %d in the H-matrix solver's "
         "whitener, %d in the weak comparison (%.1f s into the run)"
@@ -4046,7 +4377,7 @@ def main():
     # launches from 0 right before each of its paths
     log("parallel: starting %.1f s into the run"
         % (time.perf_counter() - t_start))
-    par = phase_parallel(device, nuts_ref, direct["float64"])
+    par = phase_parallel(device, nuts_ref)
     del nuts_ref
     mesh_b = [par["b"][r]["f64"]["launches"] for r in range(P17_RANKS)]
     dw = par["kernels"]["dia_stream_width_float64"]
@@ -4209,5 +4540,7 @@ if __name__ == "__main__":
         unchunked_peak()
     elif sys.argv[1:2] == ["--cascade-dtype"]:
         cascade_dtype()
+    elif sys.argv[1:2] == ["--hmatrix-memory"]:
+        hmatrix_memory()
     else:
         main()

@@ -8,6 +8,8 @@
 * :func:`report` — the collected spans; :func:`reset` clears them;
 * :func:`trace` — a ``torch.profiler`` trace of the host and the card;
 * :func:`annotate` — a named region in such a trace;
+* :func:`memory_trace` — the device memory of each :func:`memory_stage`
+  that runs inside it (the H-matrix likelihood's stages);
 * the solvers' ``verbose=True`` prints go through :func:`log_span`.
 
 The registry layout, ``{name: (count, total_s, best_s)}``, and the names
@@ -21,9 +23,12 @@ import time
 
 import torch
 
-__all__ = ["timer", "report", "reset", "trace", "log_span", "annotate"]
+__all__ = ["timer", "report", "reset", "trace", "log_span", "annotate",
+           "memory_trace", "memory_stage"]
 
 _REGISTRY = {}
+# the open memory trace: its records and the stack of open stages
+_MEMORY = None
 
 
 def _cuda_devices(value, out):
@@ -120,3 +125,61 @@ def annotate(name):
     """Named region (a context manager) that shows up in profiler
     traces."""
     return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def memory_trace(device):
+    """Record every :func:`memory_stage` that runs inside the block, in the
+    order the stages close; yields the list of records. Each record holds
+    ``stage`` (the names of the open stages, outermost first, joined by
+    ``/``), ``seconds``, and on a CUDA ``device`` the bytes allocated at
+    the stage's start and end and the peak while it ran, nested stages
+    included (``start_gb``, ``end_gb``, ``peak_gb``; None on the CPU). A
+    stage synchronizes the device at both ends, so a trace slows what it
+    measures."""
+    global _MEMORY
+    device = torch.device(device)
+    records = []
+    _MEMORY = {"cuda": device.type == "cuda", "device": device,
+               "records": records, "open": []}
+    try:
+        yield records
+    finally:
+        _MEMORY = None
+
+
+def _fold_peak(mem):
+    """Fold the device's peak since the last reset into every open stage,
+    then reset it; returns the bytes allocated now."""
+    dev = mem["device"]
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for st in mem["open"]:
+        st["peak"] = max(st["peak"], peak)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+@contextlib.contextmanager
+def memory_stage(name):
+    """A named stage of :func:`memory_trace`; nothing when no trace is
+    open."""
+    mem = _MEMORY
+    if mem is None:
+        yield
+        return
+    start = _fold_peak(mem) if mem["cuda"] else None
+    st = {"name": name, "peak": start or 0}
+    mem["open"].append(st)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        end = _fold_peak(mem) if mem["cuda"] else None
+        path = "/".join(s["name"] for s in mem["open"])
+        mem["open"].pop()
+        gb = (lambda b: None if b is None else b / 1e9)
+        mem["records"].append({
+            "stage": path, "seconds": time.perf_counter() - t0,
+            "start_gb": gb(start), "end_gb": gb(end),
+            "peak_gb": gb(st["peak"] if mem["cuda"] else None)})

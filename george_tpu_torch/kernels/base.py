@@ -68,6 +68,7 @@ class Kernel(ModelSet):
     is_kernel = True
     kernel_type = -1
     stationary = False
+    sparse = False
     operator_type = -1
     _constant_names = ()
     _base_param_names = ()

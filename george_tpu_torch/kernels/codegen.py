@@ -14,7 +14,7 @@ modules and are not generated here: the port's are in
 ``kernels/custom.py``.
 
 The generated file is checked in, so nothing at run time needs ``yaml``;
-only this tool imports it, inside :func:`main`.
+only this tool imports it, inside :func:`generate` and :func:`check`.
 
 Regenerate with::
 
@@ -217,20 +217,40 @@ def render(specs):
     return "\n".join(chunks), names
 
 
-def main(argv):
+def _specs():
     import yaml
 
-    src, names = render(load_specs(yaml.safe_load))
+    return load_specs(yaml.safe_load)
+
+
+def generate(output=OUTPUT):
+    """Write the generated source for the specs to ``output``; returns the
+    names of every spec's kernel, the generated ones then the hand-written
+    ``custom`` ones."""
+    specs = _specs()
+    src, names = render(specs)
+    with open(output, "w") as f:
+        f.write(src)
+    return names + [s["name"] for s in specs if s["kind"] == "custom"]
+
+
+def check():
+    """Whether the checked-in ``generated.py`` matches the specs (the
+    anti-drift guard)."""
+    src, _ = render(_specs())
+    with open(OUTPUT) as f:
+        return f.read() == src
+
+
+def main(argv):
     if "--check" in argv:
-        with open(OUTPUT) as f:
-            if f.read() == src:
-                print("generated sources are in sync with the specs")
-                return 0
+        if check():
+            print("generated sources are in sync with the specs")
+            return 0
         print("DRIFT: generated.py does not match the YAML specs; "
               "re-run `python -m george_tpu_torch.kernels.codegen`")
         return 1
-    with open(OUTPUT, "w") as f:
-        f.write(src)
+    names = generate()
     print("generated {0} kernels -> {1}".format(len(names), OUTPUT))
     return 0
 

@@ -34,7 +34,11 @@ stay small.
   kernel's dominant subspace with a fitted control variate
   (:meth:`HMatrixSolver.grad_log_likelihood`). The fused likelihood
   (:meth:`HMatrixSolver.loglike_fn`) differentiates its CG solve implicitly
-  and its SLQ log-determinant by a Hutchinson adjoint.
+  and its SLQ log-determinant by a Hutchinson adjoint. Its reverse mode
+  keeps no pair-function graph: the far factors (:class:`_FarFactors`),
+  the stored near field (:class:`_NearValues`) and the on-the-fly one
+  (:class:`_NearOnTheFly`) keep only theta and evaluate their blocks
+  again, a chunk at a time, in the backward.
 """
 
 import math
@@ -44,11 +48,13 @@ import warnings
 import numpy as np
 import torch
 
-from ..diagnostics import timer
+from ..diagnostics import memory_stage, timer
 from ..neighbors import morton_sort_samples
 from .hodlr import (
     HODLRStructure,
     _block_matrix,
+    _cat,
+    _chunks,
     _fps_pivots,
     build_structure,
     hodlr_factor_sym,
@@ -63,9 +69,10 @@ __all__ = ["HMatrixSolver", "HMatrixStructure", "hmatrix_compress",
            "hmatrix_near_values", "hmatrix_matvec", "pcg_solve"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
-# bound on the temporaries of one group of stored near-field slots in
-# hmatrix_matvec
+# bounds on the temporaries of one group of stored near-field slots and of
+# one group of far pairs in hmatrix_matvec
 _NEAR_GROUP_BYTES = 1 << 28
+_FAR_GROUP_BYTES = 1 << 28
 
 
 # ---------------------------------------------------------------------------
@@ -258,25 +265,111 @@ def hmatrix_compress(pair_fn, theta, xpad, valid, hs, ridge_floor=None):
     ``ridge_floor`` carries the ``tol_abs`` semantics. Returns a list (one
     entry per populated depth) of ``(C, Q)``, each ``(P, s, c)``.
     """
-    dev = xpad.device
-    out = []
-    for li, lev in enumerate(hs.far):
-        s = lev["s"]
-        a, b = hs.index("a", dev, li), hs.index("b", dev, li)
-        piv = hs.index("piv", dev, li)                 # (2^d, c) absolute
-        xd = xpad.reshape(hs.n_pad // s, s, -1)
-        vd = valid.reshape(hs.n_pad // s, s)
-        I_a, J_b = piv[a], piv[b]                      # (P, c)
+    return _FarBlocks(pair_fn, xpad, valid, hs, ridge_floor).factors(theta)
+
+
+class _FarBlocks(object):
+    """The far factors of :func:`hmatrix_compress` in chunks of pairs:
+    ``chunks`` lists ``(depth index, slice of its pairs)``, each chunk's
+    kernel entries (``M``, ``C`` and ``R``) under ``hodlr._CHUNK_BYTES``,
+    and ``pairs(theta, li, sl)`` compresses one chunk. The pairs are
+    independent, so a chunk is the same arithmetic as its rows of the
+    whole depth."""
+
+    def __init__(self, pair_fn, xpad, valid, hs, ridge_floor=None):
+        dev = xpad.device
+        self.pair_fn, self.xpad, self.valid = pair_fn, xpad, valid
+        self.hs, self.ridge_floor = hs, ridge_floor
+        self.idx = [(hs.index("a", dev, li), hs.index("b", dev, li),
+                     hs.index("piv", dev, li)) for li in range(len(hs.far))]
+        itemsize = xpad.element_size()
+        self.chunks = [
+            (li, sl) for li, lev in enumerate(hs.far)
+            for sl in _chunks(len(lev["a"]),
+                              (2 * lev["s"] + lev["c"]) * lev["c"] * itemsize)]
+
+    def pairs(self, theta, li, sl):
+        """``(C, Q)`` of the pairs ``sl`` of depth ``li``."""
+        s = self.hs.far[li]["s"]
+        a, b, piv = self.idx[li]
+        a, b = a[sl], b[sl]
+        xpad, valid, pair = self.xpad, self.valid, self.pair_fn
+        xd = xpad.reshape(self.hs.n_pad // s, s, -1)
+        vd = valid.reshape(self.hs.n_pad // s, s)
+        I_a, J_b = piv[a], piv[b]                      # (P, c) absolute
         xI, vI = xpad[I_a], valid[I_a]
         xJ, vJ = xpad[J_b], valid[J_b]
-        M = _block_matrix(pair_fn, theta, xI, vI, xJ, vJ)        # (P, c, c)
-        C = _block_matrix(pair_fn, theta, xd[a], vd[a], xJ, vJ)  # (P, s, c)
-        R = _block_matrix(pair_fn, theta, xI, vI, xd[b], vd[b])  # (P, c, s)
-        G = ridge_gram(M, ridge_floor)
+        M = _block_matrix(pair, theta, xI, vI, xJ, vJ)        # (P, c, c)
+        C = _block_matrix(pair, theta, xd[a], vd[a], xJ, vJ)  # (P, s, c)
+        R = _block_matrix(pair, theta, xI, vI, xd[b], vd[b])  # (P, c, s)
+        G = ridge_gram(M, self.ridge_floor)
         rhs = torch.einsum("pkc,pks->pcs", M, R)       # projected M^T R
         Qt = torch.linalg.solve(G, rhs)                # (P, c, s)
-        out.append((C, Qt.mT))
-    return out
+        return C, Qt.mT
+
+    def per_depth(self, fn):
+        """``fn(li, sl)``, a ``(C, Q)``-shaped pair of one chunk, over
+        every chunk, concatenated per depth."""
+        out = [([], []) for _ in self.hs.far]
+        for li, sl in self.chunks:
+            for acc, t in zip(out[li], fn(li, sl)):
+                acc.append(t)
+        return [(_cat(Cs), _cat(Qs)) for Cs, Qs in out]
+
+    def factors(self, theta):
+        """Every depth's ``(C, Q)``."""
+        return self.per_depth(lambda li, sl: self.pairs(theta, li, sl))
+
+
+class _FarFactors(torch.autograd.Function):
+    """The far factors of :class:`_FarBlocks` at ``theta``, with only
+    ``theta`` kept for the derivatives: the backward and the forward-mode
+    rule compress each chunk of pairs again under ``torch.func.vjp`` /
+    ``jvp``, so reverse mode holds one chunk's graph at a time where plain
+    autograd through :func:`hmatrix_compress` keeps every intermediate of
+    the pair function for every far pair (about 3e8 skeleton entries at
+    n = 1e5 in 2-D) until the end of the backward pass. The same
+    rematerialization as :class:`_NearOnTheFly`.
+
+    Arguments: ``(far, theta)``; returns the flat tuple ``(C_0, Q_0, C_1,
+    Q_1, ...)``. Under ``torch.func.vmap`` the batch members run one after
+    another."""
+
+    @staticmethod
+    def forward(far, theta):
+        return tuple(t for cq in far.factors(theta) for t in cq)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        far, theta = inputs
+        ctx.far = far
+        ctx.save_for_backward(theta)
+        ctx.save_for_forward(theta)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_member(_FarFactors.apply, info, in_dims, args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        (theta,) = ctx.saved_tensors
+        far = ctx.far
+        g_theta = torch.zeros_like(theta)
+        with memory_stage("hmatrix.compress.backward"), torch.no_grad():
+            for li, sl in far.chunks:
+                _, vjp_fn = torch.func.vjp(
+                    lambda th: far.pairs(th, li, sl), theta)
+                g_theta = g_theta + vjp_fn(
+                    (grads[2 * li][sl], grads[2 * li + 1][sl]))[0]
+        return None, g_theta
+
+    @staticmethod
+    def jvp(ctx, _, theta_t):
+        (theta,) = ctx.saved_tensors
+        far = ctx.far
+        tangents = far.per_depth(lambda li, sl: torch.func.jvp(
+            lambda th: far.pairs(th, li, sl), (theta,), (theta_t,))[1])
+        return tuple(t for cq in tangents for t in cq)
 
 
 def hmatrix_near_values(pair_fn, theta, xpad, valid, hs):
@@ -289,17 +382,76 @@ def hmatrix_near_values(pair_fn, theta, xpad, valid, hs):
     matvec. It holds ``B (q + 1) m^2`` entries; the solver gates it on a
     memory budget (``store_near``).
     """
-    B, m = hs.B, hs.m
-    dev = xpad.device
-    xb, vb = xpad.reshape(B, m, -1), valid.reshape(B, m)
-    Kbb = _block_matrix(pair_fn, theta, xb, vb, xb, vb)
-    nbr, nmask = hs.index("near_nbr", dev), hs.index("near_mask", dev)
-    slots = []
-    for q in range(nbr.shape[1]):
-        j = nbr[:, q]
-        Kij = _block_matrix(pair_fn, theta, xb, vb, xb[j], vb[j])  # (B, m, m)
-        slots.append(torch.where(nmask[:, q, None, None], Kij, 0.0))
-    return Kbb, torch.stack(slots, dim=1)
+    return _NearSlots(pair_fn, xpad, valid, hs).values(theta)
+
+
+class _NearSlots(object):
+    """The stored near field of :func:`hmatrix_near_values` by ELL slot:
+    ``diag(theta)`` is the leaf diagonal ``(B, m, m)``, ``slot(theta, q)``
+    the ``q``-th neighbour block of every leaf, zero where the slot is
+    padding."""
+
+    def __init__(self, pair_fn, xpad, valid, hs):
+        B, m, dev = hs.B, hs.m, xpad.device
+        self.pair_fn = pair_fn
+        self.xb, self.vb = xpad.reshape(B, m, -1), valid.reshape(B, m)
+        self.nbr = hs.index("near_nbr", dev)
+        self.nmask = hs.index("near_mask", dev)
+        self.q = self.nbr.shape[1]
+
+    def diag(self, theta):
+        return _block_matrix(self.pair_fn, theta, self.xb, self.vb, self.xb,
+                             self.vb)
+
+    def slot(self, theta, q):
+        j = self.nbr[:, q]
+        Kij = _block_matrix(self.pair_fn, theta, self.xb, self.vb,
+                            self.xb[j], self.vb[j])        # (B, m, m)
+        return torch.where(self.nmask[:, q, None, None], Kij, 0.0)
+
+    def values(self, theta):
+        """``(Kbb, Knear)``."""
+        return self.diag(theta), torch.stack(
+            [self.slot(theta, q) for q in range(self.q)], dim=1)
+
+
+class _NearValues(torch.autograd.Function):
+    """The stored near field at ``theta`` with only ``theta`` kept for the
+    backward, which evaluates each slot again, as :class:`_FarFactors`
+    does for the far factors: reverse mode holds one slot's pair-function
+    graph at a time where plain autograd through
+    :func:`hmatrix_near_values` keeps every slot's.
+
+    Arguments: ``(near, theta)`` with ``near`` a :class:`_NearSlots`;
+    returns ``(Kbb, Knear)``. Under ``torch.func.vmap`` the batch members
+    run one after another."""
+
+    @staticmethod
+    def forward(near, theta):
+        return near.values(theta)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        near, theta = inputs
+        ctx.near = near
+        ctx.save_for_backward(theta)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_member(_NearValues.apply, info, in_dims, args)
+
+    @staticmethod
+    def backward(ctx, g_bb, g_near):
+        (theta,) = ctx.saved_tensors
+        near = ctx.near
+        with memory_stage("hmatrix.near.backward"), torch.no_grad():
+            _, vjp_fn = torch.func.vjp(near.diag, theta)
+            g_theta = vjp_fn(g_bb)[0]
+            for q in range(near.q):
+                _, vjp_fn = torch.func.vjp(lambda th: near.slot(th, q),
+                                           theta)
+                g_theta = g_theta + vjp_fn(g_near[:, q])[0]
+        return None, g_theta
 
 
 def hmatrix_matvec(pair_fn, theta, xpad, valid, diag_pad, hs, far_factors,
@@ -341,17 +493,37 @@ def hmatrix_matvec(pair_fn, theta, xpad, valid, diag_pad, hs, far_factors,
 
     # compressed far field: y_a += C (Q^T x_b), y_b += Q (C^T x_a)
     # [K_ba = K_ab^T]. A box appears in many pairs, so the scatter is an
-    # index_add (an indexed += would keep one contribution per box).
+    # index_add (an indexed += would keep one contribution per box). The
+    # pairs go in groups whose gathered (g, s, k) blocks stay under
+    # _FAR_GROUP_BYTES: one group for a few columns, while a wide block (the
+    # gradient's [alpha, deflation basis, probes], ~700 columns at
+    # n = 1e5) would otherwise gather tens of GB per depth
     for li, (lev, (C, Q)) in enumerate(zip(hs.far, far_factors)):
         s = lev["s"]
         a, b = hs.index("a", dev, li), hs.index("b", dev, li)
         Xd = X.reshape(hs.n_pad // s, s, k)
-        ya = C @ (Q.mT @ Xd[b])                        # (P, s, k)
-        yb = Q @ (C.mT @ Xd[a])
-        Yd = torch.zeros_like(Xd).index_add(0, a, ya).index_add(0, b, yb)
+        Yd = torch.zeros_like(Xd)
+        g = max(1, _FAR_GROUP_BYTES // (s * k * X.element_size()))
+        for p0 in range(0, a.shape[0], g):
+            sl = slice(p0, p0 + g)
+            Cg, Qg, ag, bg = C[sl], Q[sl], a[sl], b[sl]
+            ya = Cg @ (Qg.mT @ Xd[bg])                 # (g, s, k)
+            yb = Qg @ (Cg.mT @ Xd[ag])
+            Yd = Yd.index_add(0, ag, ya).index_add(0, bg, yb)
         Y = Y + Yd.reshape(hs.n_pad, k)
 
     return Y[:, 0] if squeeze else Y
+
+
+# _BACKWARD_NO_GRAD: the backward rules below run under torch.no_grad().
+# torch.func.grad (and so grad_and_value, as minimize and the samplers
+# call it) runs every backward with create_graph=True; a rule that
+# accumulates per-chunk vjps in grad mode then records each chunk's graph
+# into its result and keeps all of them alive until the whole backward
+# ends: the near field's block intermediates at every chunk, and the
+# log-determinant adjoint's recompression. The vjps inside still work
+# (a function transform ignores an outer no_grad); the rules are not
+# differentiable again, as PCG's host-read stopping test never was.
 
 
 class _NearBlocks(object):
@@ -411,12 +583,13 @@ class _NearOnTheFly(torch.autograd.Function):
         theta, Xb = ctx.saved_tensors
         near = ctx.near
         g_theta, g_X = torch.zeros_like(theta), torch.zeros_like(Xb)
-        for i, j in near.chunks:
-            K, vjp_fn = torch.func.vjp(lambda th: near.block(th, i, j),
-                                       theta)
-            Gi = G[i]
-            g_X = g_X.index_add(0, j, K.mT @ Gi)
-            g_theta = g_theta + vjp_fn(Gi @ Xb[j].mT)[0]
+        with torch.no_grad():       # see _BACKWARD_NO_GRAD
+            for i, j in near.chunks:
+                K, vjp_fn = torch.func.vjp(lambda th: near.block(th, i, j),
+                                           theta)
+                Gi = G[i]
+                g_X = g_X.index_add(0, j, K.mT @ Gi)
+                g_theta = g_theta + vjp_fn(Gi @ Xb[j].mT)[0]
         return None, g_theta, g_X
 
     @staticmethod
@@ -447,44 +620,74 @@ def _split_parts(hs, parts):
     return far, near
 
 
-class _PcgSolve(torch.autograd.Function):
-    """``z = (K + diag)^{-1} b`` by PCG through ``op.mv(theta, diag, parts,
-    Y)``, differentiable by implicit differentiation (the port of JAX's
-    ``custom_linear_solve`` with ``symmetric=True``): the backward is one
-    more PCG solve ``w = K^{-1} z_bar``, then ``b_bar = w`` and the
-    vector-Jacobian product of ``K(theta, diag, parts) z`` at fixed ``z``
-    with cotangent ``-w``.
+def _op_solve(op, theta, diag, parts, B):
+    """``(K + diag)^{-1} B`` by PCG through ``op.mv`` with ``op``'s frozen
+    preconditioner and CG controls."""
+    return pcg_solve(lambda Y: op.mv(theta, diag, parts, Y), op.precond, B,
+                     tol=op.tol, maxiter=op.maxiter)[0]
 
-    Arguments: ``(op, theta, diag, b, *parts)``; ``op`` carries the matvec,
-    the frozen preconditioner and the CG controls. Under
+
+class _Solve(torch.autograd.Function):
+    """:func:`_op_solve` for the backward rules, which run batched under the
+    samplers' ``vmap``: its ``vmap`` rule runs the batch members one after
+    another (PCG's stopping test reads the host). Arguments: ``(op, theta,
+    diag, B, *parts)``. Used under ``no_grad``, never differentiated."""
+
+    @staticmethod
+    def forward(op, theta, diag, B, *parts):
+        return _op_solve(op, theta, diag, parts, B)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_member(_Solve.apply, info, in_dims, args)
+
+
+class _QuadForm(torch.autograd.Function):
+    """``(q, z)``: ``z = (K + diag)^{-1} r`` by PCG through ``op.mv(theta,
+    diag, parts, Y)`` and the quadratic form ``q = r^T z``, differentiable
+    in ``q`` by implicit differentiation with no second solve: ``dq = 2
+    z^T dr - z^T dK z``, so the backward is ``r_bar = 2 g z`` and the
+    vector-Jacobian product of ``K(theta, diag, parts) z`` at fixed ``z``
+    with cotangent ``-g z``. The JAX package differentiates the same solve
+    with ``custom_linear_solve``, whose transpose solves again for ``K^{-1}
+    (g r)``, which is ``g z``. ``z`` is returned for reading and is not
+    differentiable.
+
+    Arguments: ``(op, theta, diag, r, *parts)``; ``op`` carries the
+    matvec, the frozen preconditioner and the CG controls. Under
     ``torch.func.vmap`` the batch members run one after another: PCG's
     stopping test reads the host."""
 
     @staticmethod
-    def forward(op, theta, diag, b, *parts):
-        z, _ = pcg_solve(lambda Y: op.mv(theta, diag, parts, Y), op.precond,
-                         b, tol=op.tol, maxiter=op.maxiter)
-        return z
+    def forward(op, theta, diag, r, *parts):
+        z = _op_solve(op, theta, diag, parts, r)
+        return torch.dot(r, z), z
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         op, theta, diag, _, *parts = inputs
         ctx.op = op
-        ctx.save_for_backward(theta, diag, output, *parts)
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(theta, diag, output[1], *parts)
 
     @staticmethod
     def vmap(info, in_dims, *args):
-        return _per_member(_PcgSolve.apply, info, in_dims, args)
+        return _per_member(_QuadForm.apply, info, in_dims, args)
 
     @staticmethod
-    def backward(ctx, z_bar):
+    def backward(ctx, g, _):
         theta, diag, z, *parts = ctx.saved_tensors
         op = ctx.op
-        w = _PcgSolve.apply(op, theta, diag, z_bar, *parts)
-        _, vjp_fn = torch.func.vjp(
-            lambda th, dg, *pa: op.mv(th, dg, pa, z), theta, diag, *parts)
-        g_theta, g_diag, *g_parts = vjp_fn(-w)
-        return (None, g_theta, g_diag, w) + tuple(g_parts)
+        with memory_stage("hmatrix.quad.backward"), torch.no_grad():
+            _, vjp_fn = torch.func.vjp(
+                lambda th, dg, *pa: op.mv(th, dg, pa, z), theta, diag,
+                *parts)
+            g_theta, g_diag, *g_parts = vjp_fn(-g * z)
+        return (None, g_theta, g_diag, 2.0 * g * z) + tuple(g_parts)
 
 
 class _SandwichLogdet(torch.autograd.Function):
@@ -524,13 +727,15 @@ class _SandwichLogdet(torch.autograd.Function):
         theta, diag, *parts = ctx.saved_tensors
         op = ctx.op
         V = op.adjoint_probes
-        KinvV = _PcgSolve.apply(op, theta, diag, V, *parts)
+        with memory_stage("hmatrix.logdet.backward"), torch.no_grad():
+            KinvV = _Solve.apply(op, theta, diag, V, *parts)
 
-        def h(th, dg):
-            KV = op.mv(th, dg, op.parts_of(th), V)
-            return torch.mean(torch.sum(KinvV * KV, dim=0))
+            def h(th, dg):
+                KV = op.mv(th, dg, op.parts_of(th), V)
+                return torch.mean(torch.sum(KinvV * KV, dim=0))
 
-        g_theta, g_diag = torch.func.grad(h, argnums=(0, 1))(theta, diag)
+            g_theta, g_diag = torch.func.grad(h, argnums=(0, 1))(theta,
+                                                                 diag)
         return (None, g * g_theta, g * g_diag) + (None,) * len(parts)
 
 
@@ -705,6 +910,10 @@ class HMatrixSolver(object):
         self._xpad_np, self._valid_np = xpad, valid
         self._xpad = self._tensor(xpad)
         self._valid = torch.as_tensor(valid, device=self.device)
+        self._far_blocks = _FarBlocks(self.kernel.pair_fn, self._xpad,
+                                      self._valid, hs, self.tol_abs)
+        self._near_slots = _NearSlots(self.kernel.pair_fn, self._xpad,
+                                      self._valid, hs)
         self._diag_pad = self._tensor(diag_pad)
         self._theta = self._tensor(self.kernel.parameter_vector)
         pair, theta = self.kernel.pair_fn, self._theta
@@ -714,9 +923,7 @@ class HMatrixSolver(object):
         with torch.no_grad():
             # the strong operator at the compute-time theta
             with timer("hmatrix.compress", verbose) as tm:
-                self._far = tm.sync(hmatrix_compress(
-                    pair, theta, self._xpad, self._valid, hs,
-                    ridge_floor=self.tol_abs))
+                self._far = tm.sync(self._far_blocks.factors(theta))
             # store the near field when it fits the budget: CG and Lanczos
             # then pay one gather and contraction per iteration instead of
             # evaluating every near block again
@@ -730,8 +937,7 @@ class HMatrixSolver(object):
             self._near = None
             if do_store:
                 with timer("hmatrix.near", verbose) as tm:
-                    self._near = tm.sync(hmatrix_near_values(
-                        pair, theta, self._xpad, self._valid, hs))
+                    self._near = tm.sync(self._near_slots.values(theta))
 
             # float32 cannot reach 1e-10 residuals: floor the tolerance at
             # the dtype's achievable accuracy
@@ -844,15 +1050,11 @@ class HMatrixSolver(object):
 
     def _parts(self, theta):
         """The strong operator's flat parts at ``theta``: the far factors
-        and, when the solver stores it, the near field."""
-        far = hmatrix_compress(self.kernel.pair_fn, theta, self._xpad,
-                               self._valid, self._hs,
-                               ridge_floor=self.tol_abs)
-        parts = [t for cq in far for t in cq]
+        (compressed again in the derivatives, :class:`_FarFactors`) and,
+        when the solver stores it, the near field."""
+        parts = list(_FarFactors.apply(self._far_blocks, theta))
         if self._near is not None:
-            parts.extend(hmatrix_near_values(self.kernel.pair_fn, theta,
-                                             self._xpad, self._valid,
-                                             self._hs))
+            parts.extend(_NearValues.apply(self._near_slots, theta))
         return tuple(parts)
 
     def _mv_of(self, theta, diag, parts, Y):
@@ -871,9 +1073,8 @@ class HMatrixSolver(object):
     def _mv_theta(self, theta, Y):
         """``(K(theta) + diag) Y`` recompressed at ``theta`` with the near
         field on the fly: the form to differentiate in ``theta``."""
-        far = hmatrix_compress(self.kernel.pair_fn, theta, self._xpad,
-                               self._valid, self._hs,
-                               ridge_floor=self.tol_abs)
+        far, _ = _split_parts(self._hs,
+                              _FarFactors.apply(self._far_blocks, theta))
         return hmatrix_matvec(self.kernel.pair_fn, theta, self._xpad,
                               self._valid, self._diag_pad, self._hs, far, Y)
 
@@ -926,7 +1127,7 @@ class HMatrixSolver(object):
         """Pure ``f(theta_kernel, diag, r) -> log-likelihood`` through the
         strong-admissibility machinery (the fused contract ``GP.log_prob_fn``
         consumes): far recompression and near assembly per theta, the
-        quadratic term by PCG with an implicit adjoint (:class:`_PcgSolve`),
+        quadratic term by PCG with an implicit adjoint (:class:`_QuadForm`),
         and the frozen-whitener SLQ log-determinant with a Hutchinson
         adjoint (:class:`_SandwichLogdet`). The whitener and the sandwich
         base stay at compute-theta: the identity ``log det(K(th) + D) = log
@@ -954,10 +1155,14 @@ class HMatrixSolver(object):
             r_pad = torch.cat([r[perm], r.new_zeros(pad)])
             # one far compression and near assembly per evaluation, shared
             # by the quadratic term and the log-determinant
-            parts = self._parts(theta_k)
-            z = _PcgSolve.apply(op, theta_k, diag_pad, r_pad, *parts)
-            ld = _SandwichLogdet.apply(op, theta_k, diag_pad, *parts)
-            return -0.5 * (torch.dot(r_pad, z) + ld + n * _LOG_2PI)
+            with memory_stage("hmatrix.ll.parts"):
+                parts = self._parts(theta_k)
+            with memory_stage("hmatrix.ll.pcg"):
+                quad, _ = _QuadForm.apply(op, theta_k, diag_pad, r_pad,
+                                          *parts)
+            with memory_stage("hmatrix.ll.slq"):
+                ld = _SandwichLogdet.apply(op, theta_k, diag_pad, *parts)
+            return -0.5 * (quad + ld + n * _LOG_2PI)
 
         return loglike
 
@@ -1162,9 +1367,10 @@ class HMatrixSolver(object):
     # pickling drops the device state; a restored solver needs a compute
     def __getstate__(self):
         state = self.__dict__.copy()
-        for k in ("_hs", "_st", "_sym", "_nystrom", "_far", "_near",
-                  "_xpad", "_valid", "_diag_pad", "_theta", "_slq_probes",
-                  "_xpad_np", "_valid_np", "_perm_t"):
+        for k in ("_hs", "_st", "_sym", "_nystrom", "_far", "_far_blocks",
+                  "_near", "_near_slots", "_xpad", "_valid", "_diag_pad",
+                  "_theta", "_slq_probes", "_xpad_np", "_valid_np",
+                  "_perm_t"):
             state.pop(k, None)
         state["computed"] = False
         return state

@@ -53,7 +53,8 @@ from .linalg import as_points
 
 __all__ = ["SparseSolver", "ell_from_csr", "ell_matvec", "ell_values",
            "ell_apply", "dia_apply", "banded_offsets", "banded_ell_tables",
-           "cg_solve", "lanczos_fn_matvec", "pcg_solve", "slq_logdet"]
+           "cg_solve", "cg_diff_solve", "lanczos_fn_matvec", "pcg_solve",
+           "slq_logdet"]
 
 
 def ell_from_csr(nbr_idx, row_ptr, pad_multiple=8):
@@ -287,13 +288,57 @@ def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000, rowsum=None):
                      rowsum=rowsum)
 
 
+def cg_diff_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):
+    """Differentiable SPD solve ``A^{-1} b``: :func:`cg_solve`, with the
+    derivatives of JAX's ``custom_linear_solve`` (``symmetric=True``) in
+    ``b`` and in every tensor ``matvec`` closes over, by implicit
+    differentiation: one more CG solve for a cotangent or a tangent, no
+    unrolled iterations. The value is the CG solution ``x``; the
+    derivatives come from ``x + S(b - A x)``, where ``S`` is ``A^{-1}`` in
+    its derivatives and zero in its value (the residual is below the CG
+    tolerance), so they are ``A^{-1} (db - dA x)``."""
+    def solve(rhs):
+        with torch.no_grad():
+            return cg_solve(matvec, rhs, precond_diag, tol=tol,
+                            maxiter=maxiter)[0]
+
+    x = solve(b)
+    return x + _ResidualSolve.apply(b - matvec(x), solve)
+
+
+class _ResidualSolve(torch.autograd.Function):
+    """``S(r) = 0`` with the derivatives of ``A^{-1} r``, ``A`` symmetric:
+    the backward and the forward-mode rule apply ``solve`` (``A^{-1}``) to
+    the cotangent or the tangent. Arguments: ``(r, solve)``."""
+
+    @staticmethod
+    def forward(r, solve):
+        return torch.zeros_like(r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.solve = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.solve(g), None
+
+    @staticmethod
+    def jvp(ctx, r_t, _):
+        return ctx.solve(r_t)
+
+
 def _per_member(apply, info, in_dims, args):
     """A Function's ``vmap`` rule that runs the batch members one after
     another: ``apply`` on each member's slice of the batched arguments,
-    the results stacked along dimension 0."""
+    the results (a tensor, or each tensor of a tuple) stacked along
+    dimension 0."""
     outs = [apply(*[a if d is None else a.select(d, i)
                     for a, d in zip(args, in_dims)])
             for i in range(info.batch_size)]
+    if isinstance(outs[0], tuple):
+        return (tuple(torch.stack(o) for o in zip(*outs)),
+                (0,) * len(outs[0]))
     return torch.stack(outs), 0
 
 

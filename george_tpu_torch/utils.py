@@ -4,8 +4,10 @@ ported slice needs)."""
 
 import numpy as np
 
-__all__ = ["multivariate_gaussian_samples", "numerical_gradient",
-           "check_gradient"]
+from .neighbors import nd_sort_samples  # noqa: F401  (re-export)
+
+__all__ = ["multivariate_gaussian_samples", "nd_sort_samples",
+           "numerical_gradient", "check_gradient"]
 
 
 def multivariate_gaussian_samples(matrix, N, mean=None):
