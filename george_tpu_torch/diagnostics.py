@@ -7,7 +7,10 @@
   is marked with :meth:`timer.sync`;
 * :func:`report` — the collected spans; :func:`reset` clears them;
 * :func:`trace` — a ``torch.profiler`` trace of the host and the card;
-* :func:`annotate` — a named region in such a trace;
+* :func:`annotate` — a named region in such a trace, one check while no
+  profiler runs; :func:`backward_mark` — one over a reverse pass;
+* ``host_reads`` — a count of the device-to-host reads the evaluation
+  paths make (:func:`count_host_read`);
 * :func:`memory_trace` — the device memory of each :func:`memory_stage`
   that runs inside it (the H-matrix likelihood's stages);
 * the solvers' ``verbose=True`` prints go through :func:`log_span`.
@@ -24,9 +27,17 @@ import time
 import torch
 
 __all__ = ["timer", "report", "reset", "trace", "log_span", "annotate",
-           "memory_trace", "memory_stage"]
+           "backward_mark", "profiling", "count_host_read", "memory_trace",
+           "memory_stage"]
 
 _REGISTRY = {}
+# what :func:`annotate` returns while no profiler runs
+_NULL = contextlib.nullcontext()
+# the reverse-pass span of :func:`backward_mark` that is open, if any
+_BACKWARD = None
+# the program's own device-to-host reads on the evaluation paths: the CG
+# stopping test, GP.predict's kernel blocks and the HODLR solve's answer
+host_reads = 0
 # the open memory trace: its records and the stack of open stages
 _MEMORY = None
 
@@ -48,7 +59,7 @@ def _cuda_devices(value, out):
 
 class timer(object):
     """``with timer("hodlr.factor") as tm: out = tm.sync(f(...))`` —
-    accumulate a named span.
+    accumulate a named span, which is also an :func:`annotate` region.
 
     A value marked with :meth:`sync` (a tensor, or nested tuples, lists
     and dicts of tensors) has its CUDA devices synchronized before the
@@ -66,6 +77,8 @@ class timer(object):
         return value
 
     def __enter__(self):
+        self._span = annotate(self.name)
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -74,6 +87,7 @@ class timer(object):
             for device in _cuda_devices(self._sync, set()):
                 torch.cuda.synchronize(device)
         dt = time.perf_counter() - self._t0
+        self._span.__exit__(*exc)
         count, total, best = _REGISTRY.get(self.name, (0, 0.0, float("inf")))
         _REGISTRY[self.name] = (count + 1, total + dt, min(best, dt))
         if self.verbose:
@@ -121,10 +135,68 @@ def trace(log_dir=None):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def profiling():
+    """Whether a ``torch.profiler`` records this thread's operations."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def annotate(name):
-    """Named region (a context manager) that shows up in profiler
-    traces."""
+    """Named region (a context manager) that shows up in profiler traces,
+    on the profiler's clock, as a ``user_annotation`` event. While no
+    profiler runs it is a shared null context: one check, no record. It
+    neither synchronizes nor reads the device."""
+    if not profiling():
+        return _NULL
     return torch.profiler.record_function(name)
+
+
+def _close_backward():
+    global _BACKWARD
+    if _BACKWARD is not None:
+        _BACKWARD.__exit__(None, None, None)
+        _BACKWARD = None
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity, whose backward opens the span ``name`` (closing one
+    left open) or, with ``name`` None, closes it. Arguments: ``(x,
+    name)``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, name):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.name = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        global _BACKWARD
+        _close_backward()
+        if ctx.name is not None and profiling():
+            _BACKWARD = torch.profiler.record_function(ctx.name)
+            _BACKWARD.__enter__()
+        return g, None
+
+
+def backward_mark(x, name=None):
+    """A function's reverse pass as a span: ``out = backward_mark(out,
+    "hodlr.backward")`` on the result, whose backward opens the span, and
+    ``x = backward_mark(x)`` on the input, whose backward closes it, on the
+    thread autograd runs them on (under ``torch.func.vmap`` once for the
+    batch). The identity in value; ``x`` itself while no profiler runs."""
+    if not profiling():
+        return x
+    return _BackwardMark.apply(x, name)
+
+
+def count_host_read():
+    """Count one device-to-host read in ``host_reads``."""
+    global host_reads
+    host_reads += 1
 
 
 @contextlib.contextmanager

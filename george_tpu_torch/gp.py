@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .diagnostics import annotate, count_host_read
 from .modeling import ModelSet, ConstantModel, Model, CallableModel
 from .neighbors import normalize_nns
 from .solvers import TrivialSolver, BasicSolver
@@ -733,6 +734,7 @@ class GP(ModelSet):
         with torch.no_grad():
             K = kernel.pair_fn(theta, a, b) if diag else kernel.gram(
                 theta, a, b)
+        count_host_read()
         return K.cpu().numpy().astype(np.float64)
 
     def predict(
@@ -749,28 +751,31 @@ class GP(ModelSet):
         Returns ``mu``, ``(mu, cov)`` or ``(mu, var)`` depending on
         ``return_cov`` / ``return_var``. A ``kernel`` override computes the
         cross-covariance with a different kernel.
+
+        Under a profiler the call is the span ``gp.predict``, each kernel
+        block ``gp.predict.cross_cov`` and the solve ``gp.predict.solve``.
         """
-        self.recompute()
-        alpha = self._compute_alpha(y, cache)
-        xs = self.parse_samples(t)
+        with annotate("gp.predict"):
+            self.recompute()
+            alpha = self._compute_alpha(y, cache)
+            xs = self.parse_samples(t)
 
-        if kernel is None:
-            kernel = self.kernel
+            if kernel is None:
+                kernel = self.kernel
 
-        Kxs = self._kernel_values(kernel, xs, self._x)
-        mu = np.dot(Kxs, alpha) + self._call_mean(xs)
-        if not (return_var or return_cov):
-            return mu
+            with annotate("gp.predict.cross_cov"):
+                Kxs = self._kernel_values(kernel, xs, self._x)
+            mu = np.dot(Kxs, alpha) + self._call_mean(xs)
+            if not (return_var or return_cov):
+                return mu
 
-        KinvKxs = self.solver.apply_inverse(Kxs.T)
-        if return_var:
-            var = self._kernel_values(kernel, xs, diag=True)
-            var -= np.sum(Kxs.T * KinvKxs, axis=0)
-            return mu, var
-
-        cov = self._kernel_values(kernel, xs)
-        cov -= np.dot(Kxs, KinvKxs)
-        return mu, cov
+            with annotate("gp.predict.solve"):
+                KinvKxs = self.solver.apply_inverse(Kxs.T)
+            with annotate("gp.predict.cross_cov"):
+                prior = self._kernel_values(kernel, xs, diag=return_var)
+            if return_var:
+                return mu, prior - np.sum(Kxs.T * KinvKxs, axis=0)
+            return mu, prior - np.dot(Kxs, KinvKxs)
 
     def sample_conditional(self, y, t, size=1):
         """Samples from the predictive conditional distribution."""

@@ -66,7 +66,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..diagnostics import timer
+from ..diagnostics import annotate, backward_mark, count_host_read, timer
 from ..neighbors import knn_indices, morton_sort_samples
 from ..ops.chol import cholesky as _batched_cholesky
 from ..parallel.collectives import broadcast, replicated, row_shard
@@ -1601,14 +1601,18 @@ class HODLRSolver(object):
         n = st.n
 
         def loglike(theta_k, diag, r):
-            diag_pad, r_pad = self._pad_diag_rhs(perm, diag, r)
-            factors, logdet = hodlr_factor(
-                pair, theta_k, xpad, valid, diag_pad, st
-            )
-            r_pad = _rows(st, _enter(st, r_pad))
-            z = hodlr_solve(factors, st, r_pad)
-            quad = _rowsum(st, torch.dot(r_pad, z))
-            return (-0.5 * (quad + logdet + n * _LOG_2PI)).to(r_pad.dtype)
+            theta_k = backward_mark(theta_k)
+            with annotate("hodlr.factor"):
+                diag_pad, r_pad = self._pad_diag_rhs(perm, diag, r)
+                factors, logdet = hodlr_factor(
+                    pair, theta_k, xpad, valid, diag_pad, st
+                )
+            with annotate("hodlr.solve"):
+                r_pad = _rows(st, _enter(st, r_pad))
+                z = hodlr_solve(factors, st, r_pad)
+                quad = _rowsum(st, torch.dot(r_pad, z))
+            out = (-0.5 * (quad + logdet + n * _LOG_2PI)).to(r_pad.dtype)
+            return backward_mark(out, "hodlr.backward")
 
         return loglike
 
@@ -1663,6 +1667,7 @@ class HODLRSolver(object):
         return self._tensor(np.concatenate([Y[self._perm], pad])), squeeze
 
     def _unpad(self, Z, squeeze):
+        count_host_read()
         Z = Z[: self._struct.n].detach().cpu().numpy().astype(np.float64)
         out = np.empty_like(Z)
         out[self._perm] = Z

@@ -40,6 +40,7 @@ Hutchinson adjoint (``_CgSolve``, ``_SlqLogdet``), through the same apply.
 import numpy as np
 import torch
 
+from ..diagnostics import annotate, count_host_read
 from ..neighbors import (
     knn_matrix_to_csr, normalize_nns, radius_neighbors_csr,
 )
@@ -55,6 +56,9 @@ __all__ = ["SparseSolver", "ell_from_csr", "ell_matvec", "ell_values",
            "ell_apply", "dia_apply", "banded_offsets", "banded_ell_tables",
            "cg_solve", "cg_diff_solve", "lanczos_fn_matvec", "pcg_solve",
            "slq_logdet"]
+
+# iterations of :func:`pcg_solve` on every path (a program counter)
+cg_iteration_count = 0
 
 
 def ell_from_csr(nbr_idx, row_ptr, pad_multiple=8):
@@ -251,8 +255,11 @@ def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200, rowsum=None):
     apply ``precond(r) ~= A^{-1} r`` (vector or multi-RHS, every column
     iterated until all meet ``||r|| <= tol ||b||``). Returns ``(x,
     iterations)``; the stopping test reads one scalar back to the host per
-    iteration. With the rows split over ranks, ``rowsum`` completes each
-    column sum over them, so every rank stops at the same iteration."""
+    iteration (counted in ``diagnostics.host_reads``; the iterations in
+    ``cg_iteration_count``). With the rows split over ranks, ``rowsum``
+    completes each column sum over them, so every rank stops at the same
+    iteration."""
+    global cg_iteration_count
     red = rowsum or (lambda t: t)
     squeeze = b.ndim == 1
     B = b[:, None] if squeeze else b
@@ -265,8 +272,8 @@ def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200, rowsum=None):
                          torch.finfo(B.dtype).tiny)
     tol2 = tol * tol
     it = 0
-    while it < maxiter and bool(torch.any(red(torch.sum(R * R, dim=0)) / b2
-                                          > tol2)):
+    while it < maxiter and _host_any(red(torch.sum(R * R, dim=0)) / b2
+                                     > tol2):
         AP = matvec(P)
         denom = red(torch.sum(P * AP, dim=0))
         alpha = rz / torch.where(denom > 0, denom, 1.0)
@@ -277,7 +284,14 @@ def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200, rowsum=None):
         P = Z + (rz_new / torch.where(rz > 0, rz, 1.0)) * P
         rz = rz_new
         it += 1
+        cg_iteration_count += 1
     return (X[:, 0] if squeeze else X), it
+
+
+def _host_any(t):
+    """``bool(torch.any(t))``, one device-to-host read."""
+    count_host_read()
+    return bool(torch.any(t))
 
 
 def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000, rowsum=None):
@@ -379,9 +393,10 @@ class _CgSolve(torch.autograd.Function):
     @staticmethod
     def forward(vals, diag, b, pdiag, nbr, mask, it):
         vals, diag = vals.contiguous(), diag.contiguous()
-        z, _ = cg_solve(lambda Y: it.apply(vals, Y, diag), b.contiguous(),
-                        pdiag, tol=it.tol, maxiter=it.maxiter,
-                        rowsum=it.rowsum)
+        with annotate("sparse.cg"):
+            z, _ = cg_solve(lambda Y: it.apply(vals, Y, diag), b.contiguous(),
+                            pdiag, tol=it.tol, maxiter=it.maxiter,
+                            rowsum=it.rowsum)
         return z
 
     @staticmethod
@@ -397,9 +412,10 @@ class _CgSolve(torch.autograd.Function):
     @staticmethod
     def backward(ctx, z_bar):
         vals, diag, pdiag, nbr, mask, z = ctx.saved_tensors
-        w = _CgSolve.apply(vals, diag, z_bar, pdiag, nbr, mask, ctx.it)
-        vals_bar = -w[:, None] * ctx.it.whole(z)[nbr] * mask
-        return vals_bar, -w * z, w, None, None, None, None
+        with annotate("sparse.adjoint"):
+            w = _CgSolve.apply(vals, diag, z_bar, pdiag, nbr, mask, ctx.it)
+            vals_bar = -w[:, None] * ctx.it.whole(z)[nbr] * mask
+            return vals_bar, -w * z, w, None, None, None, None
 
 
 class _SlqLogdet(torch.autograd.Function):
@@ -421,8 +437,10 @@ class _SlqLogdet(torch.autograd.Function):
     @staticmethod
     def forward(vals, diag, V, pdiag, nbr, mask, it):
         vals, diag = vals.contiguous(), diag.contiguous()
-        return slq_logdet(lambda Y: it.apply(vals, Y, diag), V.mT,
-                          num_steps=it.num_steps, rowsum=it.rowsum, n=it.n)
+        with annotate("sparse.slq"):
+            return slq_logdet(lambda Y: it.apply(vals, Y, diag), V.mT,
+                              num_steps=it.num_steps, rowsum=it.rowsum,
+                              n=it.n)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -437,15 +455,16 @@ class _SlqLogdet(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         vals, diag, V, pdiag, nbr, mask = ctx.saved_tensors
-        KinvV = _CgSolve.apply(vals, diag, V, pdiag, nbr, mask, ctx.it)
-        num_probes = V.shape[1]
-        diag_bar = g * torch.mean(V * KinvV, dim=1)
-        KinvV = ctx.it.whole(KinvV)
-        acc = torch.zeros_like(vals)
-        for k in range(num_probes):
-            acc = acc + V[:, k, None] * KinvV[:, k][nbr]
-        vals_bar = g * (acc / num_probes) * mask
-        return (vals_bar, diag_bar) + (None,) * 5
+        with annotate("sparse.adjoint"):
+            KinvV = _CgSolve.apply(vals, diag, V, pdiag, nbr, mask, ctx.it)
+            num_probes = V.shape[1]
+            diag_bar = g * torch.mean(V * KinvV, dim=1)
+            KinvV = ctx.it.whole(KinvV)
+            acc = torch.zeros_like(vals)
+            for k in range(num_probes):
+                acc = acc + V[:, k, None] * KinvV[:, k][nbr]
+            vals_bar = g * (acc / num_probes) * mask
+            return (vals_bar, diag_bar) + (None,) * 5
 
 
 class SparseSolver(object):
@@ -480,6 +499,11 @@ class SparseSolver(object):
         its gradient, solves, matvecs, ``apply_sqrt`` and ``loglike_fn``
         (``GP.log_prob_fn``, under the samplers' ``vmap`` too) run
         sharded.
+
+    ``cg_iterations`` holds the iterations of the last ``dot_solve`` or
+    ``apply_inverse`` solve (0 on the direct path); the module's
+    ``cg_iteration_count`` counts those of every path, ``loglike_fn``'s
+    too.
     """
 
     matrix_free = True

@@ -5,6 +5,7 @@ CPU: ``diagnostics`` (timer registry, verbose spans, trace), ``checkpoint``
 factorization self-check, ``debug=True`` and the GP's debug gradient
 check (after ``tests/test_aux.py`` and ``tests/test_hodlr.py``)."""
 
+import json
 import sys
 import warnings
 
@@ -81,6 +82,68 @@ def test_port_trace_and_annotate(tmp_path):
     assert log_dir == str(tmp_path)
     text = (tmp_path / "trace.json").read_text()
     assert "george.unit" in text
+
+
+def _user_annotations(path):
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "user_annotation"]
+
+
+def test_port_annotate_is_one_check_when_no_profiler_runs(tmp_path,
+                                                          monkeypatch):
+    """Off: no ``record_function`` at all, a shared null context; on: one
+    ``user_annotation`` event a region, ``timer``'s spans included."""
+    calls = []
+    record = torch.profiler.record_function
+
+    def counted(name):
+        calls.append(name)
+        return record(name)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    assert not diagnostics.profiling()
+    with diagnostics.annotate("george.off") as region:
+        assert region is None
+    assert diagnostics.annotate("a") is diagnostics.annotate("b")
+    with diagnostics.timer("george.timer.off"):
+        pass
+    assert calls == []
+    with diagnostics.trace(str(tmp_path)):
+        assert diagnostics.profiling()
+        with diagnostics.annotate("george.on"):
+            torch.ones(4).sum()
+        with diagnostics.timer("george.timer.on"):
+            torch.ones(4).sum()
+    assert calls == ["george.on", "george.timer.on"]
+    names = _user_annotations(str(tmp_path / "trace.json"))
+    assert names.count("george.on") == 1
+    assert names.count("george.timer.on") == 1
+    assert "george.off" not in names and "george.timer.off" not in names
+    assert diagnostics.report()["george.timer.on"]["count"] == 1
+
+
+def test_port_backward_mark_spans_the_reverse_pass(tmp_path):
+    """The marks are the identity (the input itself while no profiler
+    runs); under a trace the reverse pass between them is one span, once
+    for a ``vmap`` batch too, and none is left open."""
+    def f(t):
+        t = diagnostics.backward_mark(t)
+        out = torch.sum(torch.sin(t) ** 2)
+        return diagnostics.backward_mark(out, "unit.backward")
+
+    t = torch.linspace(0.0, 1.0, 5, dtype=torch.float64)
+    assert diagnostics.backward_mark(t) is t
+    g0, v0 = torch.func.grad_and_value(f)(t)
+    with diagnostics.trace(str(tmp_path)):
+        g1, v1 = torch.func.grad_and_value(f)(t)
+        g2, v2 = torch.func.vmap(torch.func.grad_and_value(f))(
+            torch.stack([t, 2 * t]))
+    assert torch.equal(g0, g1) and torch.equal(v0, v1)
+    assert torch.equal(g2[0], g0) and torch.equal(v2[0], v0)
+    names = _user_annotations(str(tmp_path / "trace.json"))
+    assert names.count("unit.backward") == 2
+    assert diagnostics._BACKWARD is None
 
 
 # ---------------------------------------------------------------------------

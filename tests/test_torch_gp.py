@@ -321,3 +321,67 @@ def test_every_submodule_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# spans and counters inside an evaluation (``diagnostics``)
+# ---------------------------------------------------------------------------
+
+def _spans(prof, names):
+    got = [e.name for e in prof.events()]
+    return {n: got.count(n) for n in names}
+
+
+def _traced(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof
+
+
+def _small_hodlr_gp():
+    x, y = X[:600], Y[:600]
+    gp = tgt.GP(np.var(Y) * tgt.kernels.ExpSquaredKernel(0.5),
+                solver=tgt.HODLRSolver, min_size=64, rank=16, device=DEV,
+                dtype=torch.float64)
+    gp.compute(x, YERR[:600])
+    return gp, x, y
+
+
+def test_hodlr_log_prob_spans_once_a_call_and_change_nothing():
+    """``hodlr.factor``, ``hodlr.solve`` and ``hodlr.backward`` once per
+    value + gradient, for one chain and for two under ``vmap``; value and
+    gradient bit-identical with the profiler on and off."""
+    gp, x, y = _small_hodlr_gp()
+    f = torch.func.grad_and_value(gp.log_prob_fn(x, y, YERR[:600]))
+    fv = torch.func.vmap(f)
+    th = torch.as_tensor(gp.get_parameter_vector())
+    ths = torch.stack([th, th + 0.01])
+    names = ("hodlr.factor", "hodlr.solve", "hodlr.backward")
+    off = f(th), fv(ths)
+    for fn, arg, ref in ((f, th, off[0]), (fv, ths, off[1])):
+        (g, v), prof = _traced(lambda: fn(arg))
+        assert _spans(prof, names) == dict.fromkeys(names, 1)
+        assert torch.equal(g, ref[0]) and torch.equal(v, ref[1])
+    assert tgt.diagnostics._BACKWARD is None
+
+
+def test_predict_spans_host_reads_and_values():
+    """``GP.predict`` is the span ``gp.predict`` with its two kernel blocks
+    in ``gp.predict.cross_cov`` and the solve in ``gp.predict.solve``; it
+    reads the device three times (each block, the solver's answer); its
+    answers are bit-identical with the profiler on and off."""
+    gp, _, y = _small_hodlr_gp()
+    mu0, var0 = gp.predict(y, T_PRED, return_var=True)   # caches alpha
+    reads = tgt.diagnostics.host_reads
+    (mu1, var1), prof = _traced(
+        lambda: gp.predict(y, T_PRED, return_var=True))
+    assert tgt.diagnostics.host_reads - reads == 3
+    assert _spans(prof, ("gp.predict", "gp.predict.cross_cov",
+                         "gp.predict.solve")) == {
+        "gp.predict": 1, "gp.predict.cross_cov": 2, "gp.predict.solve": 1}
+    assert np.array_equal(mu0, mu1) and np.array_equal(var0, var1)
+    mu2, cov2 = gp.predict(y, T_PRED)
+    assert np.array_equal(mu2, mu0)
+    np.testing.assert_allclose(np.diag(cov2), var0, rtol=0,
+                               atol=1e-12 * np.abs(var0).max())

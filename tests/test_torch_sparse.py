@@ -452,3 +452,45 @@ def test_cpu_path_never_builds(monkeypatch):
     assert np.isfinite(gp.grad_log_likelihood(y)).all()
     assert gp.solver._vals.dtype == torch.float32
     assert tdia.dia_kernel_launches == 0
+
+
+def test_fused_loglike_spans_and_counters(monkeypatch):
+    """One value + gradient of ``GP.log_prob_fn`` on the iterative path:
+    the spans ``sparse.cg`` (the value's solve and the two its adjoints
+    call), ``sparse.slq`` and ``sparse.adjoint`` (the two backwards);
+    ``cg_iteration_count`` grows by the iterations the solves report and
+    ``diagnostics.host_reads`` by one stopping test more than that each;
+    value and gradient bit-identical with the profiler on and off."""
+    from torch.profiler import ProfilerActivity, profile
+    from george_tpu_torch import diagnostics
+
+    x, y, yerr = _data(1, 300)
+    _, kt = _kernels(1)
+    gp = tgt.GP(kt, solver=tgt.SparseSolver, direct=False, seed=SEED,
+                device=DEV, dtype=torch.float64)
+    gp.compute(x, yerr)
+    f = torch.func.grad_and_value(gp.log_prob_fn(x, y, yerr))
+    th = torch.as_tensor(gp.get_parameter_vector())
+    g0, v0 = f(th)
+    iters, solve = [], TS.cg_solve
+
+    def recorded(*args, **kw):
+        out = solve(*args, **kw)
+        iters.append(out[1])
+        return out
+
+    monkeypatch.setattr(TS, "cg_solve", recorded)
+    count, reads = TS.cg_iteration_count, diagnostics.host_reads
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        g1, v1 = f(th)
+    assert torch.equal(g0, g1) and torch.equal(v0, v1)
+    names = [e.name for e in prof.events()]
+    assert [names.count(n) for n in ("sparse.cg", "sparse.slq",
+                                     "sparse.adjoint")] == [3, 1, 2]
+    assert len(iters) == 3 and 0 < max(iters) < gp.solver.maxiter
+    assert TS.cg_iteration_count - count == sum(iters)
+    assert diagnostics.host_reads - reads == sum(iters) + len(iters)
+    # the protocol's solves count on the same counter
+    count = TS.cg_iteration_count
+    gp.solver.apply_inverse(y)
+    assert TS.cg_iteration_count - count == gp.solver.cg_iterations > 0
