@@ -36,7 +36,7 @@ _NULL = contextlib.nullcontext()
 # the reverse-pass span of :func:`backward_mark` that is open, if any
 _BACKWARD = None
 # the program's own device-to-host reads on the evaluation paths: the CG
-# stopping test, GP.predict's kernel blocks and the HODLR solve's answer
+# stopping test, GP.predict's answer and the HODLR solve's answer
 host_reads = 0
 # the open memory trace: its records and the stack of open stages
 _MEMORY = None

@@ -40,6 +40,22 @@ TINY = 1.25e-12
 # what a failed factorization or likelihood raises, by source
 _FAILURES = (ValueError, np.linalg.LinAlgError, torch.linalg.LinAlgError)
 
+# The posterior takes its test points in blocks whose float64 (n, k)
+# columns hold at most this many bytes: a block's widest buffers (the
+# solver's float64 cascade, the variance's products) scale with n k, so the
+# device peak stays bounded however many points a call predicts.
+_PREDICT_BLOCK_BYTES = 256 * 2 ** 20
+
+
+def _blocks(m, n):
+    """Slices of ``m`` test points against ``n`` data points, each within
+    ``_PREDICT_BLOCK_BYTES``: as few as fit, of equal sizes (cuBLAS picks
+    slower kernels for the HODLR cascade at 335 + 165 columns than at
+    250 + 250 on an H100)."""
+    count = -(-m // max(1, _PREDICT_BLOCK_BYTES // (8 * n)))
+    size = max(1, -(-m // count))
+    return [slice(a, min(a + size, m)) for a in range(0, m, size)]
+
 
 def _parse_model(model):
     try:
@@ -87,6 +103,8 @@ class GP(ModelSet):
     ):
         self._computed = False
         self._alpha = None
+        self._alpha_t = None
+        self._x_t = None
         self._y = None
         self._fused = None
         self.device = torch.device(device)
@@ -256,6 +274,8 @@ class GP(ModelSet):
         )
         self.computed = True
         self._alpha = None
+        self._alpha_t = None
+        self._x_t = None
         self._fused = None  # the solver is baked into the fused functions
 
     def recompute(self, quiet=False, **kwargs):
@@ -707,8 +727,18 @@ class GP(ModelSet):
         )
         alpha = self.solver.apply_inverse(r, in_place=True).flatten()
         if cache:
-            self._y, self._alpha = y, alpha
+            self._y, self._alpha, self._alpha_t = y, alpha, None
         return alpha
+
+    def _alpha_device(self, y, cache):
+        """:meth:`_compute_alpha`'s answer as a float64 tensor on the GP's
+        device, cached (and invalidated) with it."""
+        alpha = self._compute_alpha(y, cache)
+        if not cache:
+            return torch.as_tensor(alpha, device=self.device)
+        if self._alpha_t is None:
+            self._alpha_t = torch.as_tensor(alpha, device=self.device)
+        return self._alpha_t
 
     def apply_inverse(self, y):
         """``(K + diag)^{-1} (y - mu)`` for vectors or matrices of samples."""
@@ -725,17 +755,48 @@ class GP(ModelSet):
     # Prediction and sampling
     # ------------------------------------------------------------------
 
-    def _kernel_values(self, kernel, x1, x2=None, diag=False):
-        """Kernel block (or diagonal) on the GP's device, as float64
-        numpy."""
+    def _posterior(self, kernel, xs, alpha, out):
+        """The posterior at the test points ``xs`` (numpy ``(m, d)``) as
+        float64 tensors on the GP's device: ``(mu, None)`` for ``out=None``,
+        ``(mu, var)`` for ``"var"``, ``(mu, cov)`` for ``"cov"``, without
+        the mean model.
+
+        ``mu = Kxs alpha`` and ``cov = prior - Kxs K^{-1} Kxs^T`` (``var``
+        its diagonal), with the cross block evaluated as ``Kxs^T = K(x,
+        xs)`` in the working dtype and the products and sums in float64:
+        the posterior variance is a small difference of the prior. The test
+        points go through in blocks (:func:`_blocks`), each block's columns
+        of ``Kxs^T`` through the solver's ``solve_columns``. The spans are
+        ``gp.predict.cross_cov`` (the cross block, then the prior) and
+        ``gp.predict.solve`` (every block's solve and reduction)."""
+        f64 = torch.float64
         theta = self._tensor(kernel.parameter_vector)
-        a = self._tensor(x1)
-        b = a if x2 is None else self._tensor(x2)
+        if self._x_t is None:
+            self._x_t = self._tensor(self._x)
+        x = self._x_t
+        ts = self._tensor(xs)
+        blocks = _blocks(len(xs), len(x))
         with torch.no_grad():
-            K = kernel.pair_fn(theta, a, b) if diag else kernel.gram(
-                theta, a, b)
-        count_host_read()
-        return K.cpu().numpy().astype(np.float64)
+            with annotate("gp.predict.cross_cov"):
+                # Kxs^T by blocks of columns, the layout of the solves
+                K = [kernel.gram(theta, x, ts[b]) for b in blocks]
+            mu = torch.cat([Kc.to(f64).mT @ alpha for Kc in K])
+            if out is None:
+                return mu, None
+            with annotate("gp.predict.cross_cov"):
+                prior = (kernel.pair_fn(theta, ts, ts) if out == "var"
+                         else kernel.gram(theta, ts, ts)).to(f64)
+            with annotate("gp.predict.solve"):
+                parts = []
+                for Kc in K:
+                    Z = self.solver.solve_columns(Kc).to(f64)
+                    if out == "var":
+                        parts.append(torch.sum(Kc.to(f64) * Z, dim=0))
+                    else:
+                        parts.append(torch.cat([Kd.to(f64).mT @ Z
+                                                for Kd in K]))
+                    del Z           # before the next block's solve
+                return mu, prior - torch.cat(parts, dim=int(out == "cov"))
 
     def predict(
         self,
@@ -752,30 +813,30 @@ class GP(ModelSet):
         ``return_cov`` / ``return_var``. A ``kernel`` override computes the
         cross-covariance with a different kernel.
 
-        Under a profiler the call is the span ``gp.predict``, each kernel
-        block ``gp.predict.cross_cov`` and the solve ``gp.predict.solve``.
+        The posterior stays on the GP's device (:meth:`_posterior`) and is
+        read to the host once, at the end. Under a profiler the call is the
+        span ``gp.predict``, each kernel block ``gp.predict.cross_cov`` and
+        the solve ``gp.predict.solve``.
         """
         with annotate("gp.predict"):
             self.recompute()
-            alpha = self._compute_alpha(y, cache)
+            alpha = self._alpha_device(y, cache)
             xs = self.parse_samples(t)
 
             if kernel is None:
                 kernel = self.kernel
 
-            with annotate("gp.predict.cross_cov"):
-                Kxs = self._kernel_values(kernel, xs, self._x)
-            mu = np.dot(Kxs, alpha) + self._call_mean(xs)
-            if not (return_var or return_cov):
+            out = "var" if return_var else ("cov" if return_cov else None)
+            mu, second = self._posterior(kernel, xs, alpha, out)
+            rows = [mu[None]]
+            if second is not None:
+                rows.append(second.reshape(-1, len(xs)))
+            count_host_read()
+            host = torch.cat(rows).cpu().numpy()
+            mu = host[0] + self._call_mean(xs)
+            if out is None:
                 return mu
-
-            with annotate("gp.predict.solve"):
-                KinvKxs = self.solver.apply_inverse(Kxs.T)
-            with annotate("gp.predict.cross_cov"):
-                prior = self._kernel_values(kernel, xs, diag=return_var)
-            if return_var:
-                return mu, prior - np.sum(Kxs.T * KinvKxs, axis=0)
-            return mu, prior - np.dot(Kxs, KinvKxs)
+            return mu, host[1] if out == "var" else host[1:]
 
     def sample_conditional(self, y, t, size=1):
         """Samples from the predictive conditional distribution."""
@@ -820,7 +881,10 @@ class GP(ModelSet):
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_fused"] = None
+        state["_alpha_t"] = state["_x_t"] = None   # device copies
         return state
 
     def __setstate__(self, state):
+        state.setdefault("_alpha_t", None)
+        state.setdefault("_x_t", None)
         self.__dict__.update(state)

@@ -20,8 +20,8 @@ host arrays, and the code calls the collectives itself.
   reducer backed by collectives, and every random draw is made for all
   chains and sliced, so a sharded run draws what the unsharded run draws.
 * **Data parallelism**: :func:`sharded_predict` splits the test points
-  over the ranks and solves each rank's columns through the solver's own
-  device-side ``K^{-1}`` apply (:func:`_device_solve_cols`).
+  over the ranks and takes each rank's slice through ``GP.predict``'s
+  device-side posterior (the solver's ``solve_columns``).
 * **Row sharding** of one large dataset is the solvers' ``mesh=``
   (``HODLRSolver``, ``SparseSolver``).
 
@@ -241,87 +241,32 @@ def sharded_run_ensemble(mesh, key, p0, log_prob_fn, nsteps, **opts):
     return whole(chain), whole(logps), accs
 
 
-def _device_solve_cols(solver):
-    """``R (n, k) -> K^{-1} R`` on the solver's device for any computed
-    single-process solver, through the solver's own device-side solve (the
-    dense Cholesky, the HODLR cascade with ``sym=True`` and refinement,
-    the H-matrix PCG, sparse CG or the banded factors). Columns are
-    independent, so any split of them over ranks is exact."""
-    if getattr(solver, "_shard", None) is not None or getattr(
-            solver, "mesh", None) is not None:
+def sharded_predict(mesh, gp, y, t, return_var=True):
+    """Posterior mean (and variance) at the test points ``t``, the test
+    points split over the ranks of ``mesh``: each rank takes its slice
+    through ``gp``'s own device-side posterior (the cross covariance, the
+    solver's ``solve_columns`` and the float64 reductions of
+    ``GP.predict``), and the ranks gather the results (the test points are
+    padded to a multiple of the mesh size). ``gp`` is computed the same on
+    every rank, with a single-process solver. Returns whole arrays on every
+    rank."""
+    gp.recompute()
+    if getattr(gp.solver, "_shard", None) is not None or getattr(
+            gp.solver, "mesh", None) is not None:
         raise ValueError(
             "the solver splits its rows over a mesh already; predict "
             "through gp.predict, which every rank of that mesh calls")
-    L = getattr(solver, "_L", None)
-    if L is not None:                          # dense Cholesky
-        from ..solvers.linalg import chol_solve
-
-        return lambda R: chol_solve(L, R)
-
-    if getattr(solver, "_struct", None) is not None and getattr(
-            solver, "_factors", None) is not None:    # hierarchical
-        st = solver._struct
-        perm = torch.as_tensor(solver._perm, device=solver.device)
-
-        def solve_hodlr(R):
-            pad = R.new_zeros((st.n_pad - st.n, R.shape[1]))
-            Z = solver._solve(torch.cat([R[perm], pad]))
-            out = torch.empty_like(R)
-            out[perm] = Z[:st.n]
-            return out
-
-        return solve_hodlr
-
-    if getattr(solver, "_hs", None) is not None:      # strong H-matrix
-        n = len(solver._perm)
-
-        def solve_hmat(R):
-            Z, _ = solver._solve(solver._pad(R))
-            out = torch.empty_like(R)
-            out[solver._perm_t] = Z[:n]
-            return out
-
-        return solve_hmat
-
-    if getattr(solver, "_vals", None) is not None:    # sparse
-        return solver._solve
-
-    raise ValueError(
-        "solver %r exposes no device-side solve; compute() it first"
-        % type(solver).__name__)
-
-
-def sharded_predict(mesh, gp, y, t, return_var=True):
-    """Posterior mean (and variance) at the test points ``t``, the test
-    points split over the ranks of ``mesh``: each rank builds its slice of
-    the cross covariance on the GP's device, solves its columns through
-    the solver's device-side apply, and the ranks gather the results (the
-    test points are padded to a multiple of the mesh size). ``gp`` is
-    computed the same on every rank, with a single-process solver.
-    Returns whole arrays on every rank."""
-    gp.recompute()
-    solve_cols = _device_solve_cols(gp.solver)
-    alpha = gp._tensor(gp._compute_alpha(np.asarray(y), True))
-    x = gp._tensor(gp._x)
+    alpha = gp._alpha_device(np.asarray(y), True)
     ts = gp.parse_samples(t)
     world = mesh.size()
     n_t = len(ts)
     pad = (-n_t) % world
     ts_padded = np.concatenate([ts, np.repeat(ts[-1:], pad, axis=0)])
     a, b = _rank_rows(mesh, len(ts_padded))
-    tb = gp._tensor(ts_padded[a:b])
-    kernel = gp.kernel
-    theta = gp._tensor(kernel.parameter_vector)
+    mu, var = gp._posterior(gp.kernel, ts_padded[a:b], alpha,
+                            "var" if return_var else None)
     group = mesh.get_group()
-    with torch.no_grad():
-        Kxs = kernel.gram(theta, tb, x)                 # (k, n)
-        mu = Kxs @ alpha
-        KinvK = solve_cols(Kxs.T.contiguous())          # (n, k)
-        var = kernel.pair_fn(theta, tb, tb) - torch.sum(Kxs.T * KinvK, dim=0)
-        mu = gather_rows(mu, group)
-        var = gather_rows(var, group)
-    mu = mu.cpu().numpy().astype(np.float64)[:n_t] + gp._call_mean(ts)
-    var = var.cpu().numpy().astype(np.float64)[:n_t]
+    mu = gather_rows(mu, group).cpu().numpy()[:n_t] + gp._call_mean(ts)
     if return_var:
-        return mu, var
+        return mu, gather_rows(var, group).cpu().numpy()[:n_t]
     return mu

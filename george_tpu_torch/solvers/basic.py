@@ -65,6 +65,11 @@ class BasicSolver(object):
         return chol_solve(self._L, self._tensor(y)).cpu().numpy().astype(
             np.float64)
 
+    def solve_columns(self, R):
+        """``(K + diag)^{-1} R`` for columns ``R (n, k)`` on the solver's
+        device, in its dtype, staying there."""
+        return chol_solve(self._L, R)
+
     def dot_solve(self, y):
         """``y^T (K + diag)^{-1} y``."""
         y = self._tensor(y)

@@ -1186,6 +1186,16 @@ class HMatrixSolver(object):
         z, self.last_cg_iters = self._solve(self._pad(y))
         return self._unpad(z)
 
+    def solve_columns(self, R):
+        """``(K + diag)^{-1} R`` for columns ``R (n, k)`` in the original
+        point order by PCG (:meth:`_solve`), on the solver's device in its
+        dtype, staying there."""
+        n = len(self._perm)
+        Z, self.last_cg_iters = self._solve(self._pad(R))
+        out = torch.empty_like(R)
+        out[self._perm_t] = Z[:n]
+        return out
+
     def dot_solve(self, y):
         yp = self._pad(y)
         z, self.last_cg_iters = self._solve(yp)

@@ -1371,6 +1371,7 @@ class HODLRSolver(object):
             morton_sort_samples(x_geom) if self.sort
             else np.arange(n, dtype=np.int64)
         )
+        self._perm_t = torch.as_tensor(self._perm, device=self.device)
         xs = x[self._perm]
         # a rectangular kNN matrix asks for neighbor-guided pivots; CSR
         # tuples, ragged listings and bare triggers are sparse-solver
@@ -1677,6 +1678,18 @@ class HODLRSolver(object):
         Y, squeeze = self._pad_rhs(y)
         return self._unpad(self._solve(Y), squeeze)
 
+    def solve_columns(self, R):
+        """``K^{-1} R`` for columns ``R (n, k)`` in the original point
+        order, on the solver's device in its dtype, staying there: the rows
+        gathered into the sorted, padded order, :meth:`_solve` (whole rows
+        on every rank under ``mesh=``), and scattered back."""
+        st, perm = self._struct, self._perm_t
+        pad = R.new_zeros((st.n_pad - st.n, R.shape[1]))
+        Z = self._solve(torch.cat([R[perm], pad]))
+        out = torch.empty_like(R)
+        out[perm] = Z[:st.n]
+        return out
+
     def dot_solve(self, y):
         Y, _ = self._pad_rhs(y)
         return float(torch.sum(Y * self._solve(Y)))
@@ -1812,7 +1825,7 @@ class HODLRSolver(object):
     def __getstate__(self):
         state = self.__dict__.copy()
         for k in ("_factors", "_xpad", "_valid", "_diag_pad", "_theta",
-                  "_sym_factors", "_struct"):
+                  "_sym_factors", "_struct", "_perm_t"):
             state.pop(k, None)
         state["_sym_theta"] = None
         state["computed"] = False

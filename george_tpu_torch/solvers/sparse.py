@@ -717,7 +717,7 @@ class SparseSolver(object):
         gathers ``Y`` from every rank first."""
         if self._dia is not None:
             # the kernel takes row-major blocks; a transposed right-hand
-            # side (gp.predict's K_xs^T) and CG's updates of it are not
+            # side and CG's updates of it are not
             return self._dia(vals, diag, Y.contiguous())
         if self._shard is None:
             return ell_apply(vals, self._nbr, diag, Y)
@@ -807,6 +807,12 @@ class SparseSolver(object):
 
     def apply_inverse(self, y, in_place=False):
         return self._numpy(self._solve(self._tensor(y)))
+
+    def solve_columns(self, R):
+        """``(K + diag)^{-1} R`` for columns ``R (n, k)`` by :meth:`_solve`
+        (the banded factors or CG; whole rows on every rank under
+        ``mesh=``), on the solver's device in its dtype, staying there."""
+        return self._solve(R)
 
     def dot_solve(self, y):
         y = self._tensor(y)

@@ -1,8 +1,10 @@
 # -*- coding: utf-8 -*-
 """Diagonal-only solver for kernel-free GPs (port of
-``george_tpu/solvers/trivial.py``; numpy only)."""
+``george_tpu/solvers/trivial.py``; numpy, and torch for the device-side
+:meth:`TrivialSolver.solve_columns`)."""
 
 import numpy as np
+import torch
 
 __all__ = ["TrivialSolver"]
 
@@ -29,6 +31,12 @@ class TrivialSolver(object):
         if y.ndim == 1:
             return y * self._ivar
         return y * self._ivar[:, None]
+
+    def solve_columns(self, R):
+        """``K^{-1} R`` for columns ``R (n, k)`` on their device, in
+        float64 as :meth:`apply_inverse`."""
+        ivar = torch.as_tensor(self._ivar, device=R.device)
+        return R.to(torch.float64) * ivar[:, None]
 
     def dot_solve(self, y):
         y = np.asarray(y, dtype=np.float64)
