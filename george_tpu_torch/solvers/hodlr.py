@@ -691,43 +691,45 @@ def hodlr_factor(pair_fn, theta, xpad, valid, diag_pad, struct):
     logdet_shared = None    # the cores of levels whose pairs span ranks
 
     # --- raw skeleton factors, all levels assembled in one batch ----------
-    Zs = _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)
+    with annotate("hodlr.skeletons"):
+        Zs = _lowrank_rows_t(pair_fn, theta, xpad, valid, struct)
 
     # --- upward sweep: factor each level, update coarser factors ----------
     # each level's inverse hits ALL coarser levels' factors as one
     # concatenated multi-RHS application, in _CASCADE from the leaf solve on
-    if L:
-        Tcat = _leaf_solve_t(Lleaf, torch.cat(Zs, dim=0)).to(_CASCADE)
-        T = list(torch.split(Tcat, [Z.shape[0] for Z in Zs], dim=0))
-    else:
-        T = []
-    Zs = [Z.to(_CASCADE) for Z in Zs]
-    levels_out = [None] * L
-    for li in range(L - 1, -1, -1):   # li = level index (0 = root split)
-        c = struct.levels[li]["c"]
-        # [P^T Ptilde, Q^T Qtilde] per pair
-        D = _half_dots(struct, li, Zs[li], T[li])
-        lower, upper = D[:, 0], D[:, 1]
-        p = D.shape[0]
-        eye = torch.eye(c, dtype=upper.dtype, device=upper.device).expand(
-            p, c, c)
-        core = torch.cat(
-            [torch.cat([eye, upper], dim=-1),
-             torch.cat([lower, eye], dim=-1)],
-            dim=-2,
-        )                                                # (p, 2c, 2c)
-        core_inv, ld = _core_inv_slogdet(core)
-        if struct.views[li]["whole"]:
-            logdet = logdet + torch.sum(ld)
+    with annotate("hodlr.cascade"):
+        if L:
+            Tcat = _leaf_solve_t(Lleaf, torch.cat(Zs, dim=0)).to(_CASCADE)
+            T = list(torch.split(Tcat, [Z.shape[0] for Z in Zs], dim=0))
         else:
-            logdet_shared = torch.sum(ld) + (
-                0.0 if logdet_shared is None else logdet_shared)
-        levels_out[li] = (Zs[li], T[li], core_inv)
-        if li > 0:
-            X = _factor_apply_inv_t(Zs[li], T[li], core_inv, struct, li,
-                                    torch.cat(T[:li], dim=0))
-            T[:li] = torch.split(X, [T[j].shape[0] for j in range(li)],
-                                 dim=0)
+            T = []
+        Zs = [Z.to(_CASCADE) for Z in Zs]
+        levels_out = [None] * L
+        for li in range(L - 1, -1, -1):   # li = level index (0 = root split)
+            c = struct.levels[li]["c"]
+            # [P^T Ptilde, Q^T Qtilde] per pair
+            D = _half_dots(struct, li, Zs[li], T[li])
+            lower, upper = D[:, 0], D[:, 1]
+            p = D.shape[0]
+            eye = torch.eye(c, dtype=upper.dtype, device=upper.device).expand(
+                p, c, c)
+            core = torch.cat(
+                [torch.cat([eye, upper], dim=-1),
+                 torch.cat([lower, eye], dim=-1)],
+                dim=-2,
+            )                                                # (p, 2c, 2c)
+            core_inv, ld = _core_inv_slogdet(core)
+            if struct.views[li]["whole"]:
+                logdet = logdet + torch.sum(ld)
+            else:
+                logdet_shared = torch.sum(ld) + (
+                    0.0 if logdet_shared is None else logdet_shared)
+            levels_out[li] = (Zs[li], T[li], core_inv)
+            if li > 0:
+                X = _factor_apply_inv_t(Zs[li], T[li], core_inv, struct, li,
+                                        torch.cat(T[:li], dim=0))
+                T[:li] = torch.split(X, [T[j].shape[0] for j in range(li)],
+                                     dim=0)
 
     logdet = _rowsum(struct, logdet)
     if logdet_shared is not None:
