@@ -42,7 +42,12 @@ Phases:
    r = 4 on the bench_dia value table, a ragged n, an upper band, the
    device-memory variant; timed at r = 1, 16 and 17 through
    ``dia_matvec_cuda`` and through the solver's prepared apply, with the
-   profiler's device time per call and the launch plan) and the tiled
+   profiler's device time per call and the launch plan), the CG step
+   (bench_dia's n = 2e5 in float32 at r = 1 and 16, on states the
+   solver's DIA apply drives: the first step's blocks and the alpha and
+   beta they imply against ``cg_step_plain``, both timed by CUDA events
+   over 64 steps; its launches are then counted on phases 7-10, 17 (c)
+   and 18, and must be 0 on the direct path) and the tiled
    Cholesky (one many-warp block per CTA and eight blocks per CTA, a
    near-singular batch; timed at (8, 128) and (1024, 64) f32);
 4. HODLR slice, float32: ``GP.compute`` + ``log_likelihood`` and the
@@ -1066,6 +1071,105 @@ def phase_kernel_dia(x, y_mv, kernel):
         "against %.4f ms (%s)" % (r1["ms"], r1["library_ms"],
                                   "no greater" if r1["ms"] <= r1["library_ms"]
                                   else "GREATER"))
+    return out
+
+
+def phase_kernel_cg(data, steps=64):
+    """The CG step kernel (``csrc/cg.cu``) at the sparse path's shapes:
+    bench_dia's n = 2e5 in float32, r = 1 (the value's solve and its
+    adjoint) and r = 16 (the probe solve), on CG states the solver's own
+    DIA apply drives. Every step runs twice on the same state, through
+    ``cg_step_plain`` (its result dropped) and the kernel, each timed by a
+    pair of CUDA events around it alone (the apply before it keeps the
+    card ahead of the host). The first step from ``X = 0`` is held to the
+    plain one: every block to 1e-4 of its largest entry, and the alpha
+    and beta each column implies (``X . P / P . P``; ``(P' - minv R') . P
+    / P . P``) to 1e-4 relative, so that a wrong step length or direction
+    update fails."""
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.ops import cg
+
+    x, _, _, yerr, kernel = data
+    s = gtt.SparseSolver(kernel, direct=False, device="cuda",
+                         dtype=torch.float32)
+    s.compute(x[:, None], yerr)
+    n = len(x)
+    out = {"n": n, "D": len(s._dia_offsets)}
+    minv = 1.0 / s._pdiag
+    for r in (1, 16):
+        B = torch.randn(n, r, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(r))
+        X, R = torch.zeros_like(B), B.clone()
+        P = minv[:, None] * R
+        rz = torch.sum(R * P, dim=0)
+        b2 = torch.sum(B * B, dim=0)
+        state = torch.zeros(2, dtype=torch.int32, device="cuda")
+        work = cg.cg_workspace(X, R, P, minv, rz, b2, state)
+        times = {"kernel": [], "plain": []}
+        before = cg.cg_device_steps
+
+        def timed(name, fn):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            result = fn()
+            t1.record()
+            times[name].append((t0, t1))
+            return result
+
+        for k in range(steps):
+            # an apply before each of the two: the card works on it while
+            # the host enqueues the step
+            AP = s._apply_fixed(P)
+            P_old = P.clone() if k == 0 else None
+            ref = timed("plain", lambda: cg.cg_step_plain(
+                X, R, P, AP, minv, rz, b2, state, 0.0, 1 << 30))
+            AP = s._apply_fixed(P)
+            X, R, P, rz, state = timed("kernel", lambda: cg.cg_step_cuda(
+                X, R, P, AP, minv, rz, b2, state, 0.0, 1 << 30, work))
+            if k == 0:
+                t = out["r%d" % r] = {"max_abs_err": max(
+                    float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip((X, R, P, rz), ref[:4]))}
+                p = P_old.double()
+                pp = torch.sum(p * p, dim=0)
+                implied = {}
+                for name, (x1, r1, p1) in (("kernel", (X, R, P)),
+                                           ("plain", ref[:3])):
+                    z1 = minv.double()[:, None] * r1.double()
+                    implied[name] = (
+                        torch.sum(x1.double() * p, dim=0) / pp,
+                        torch.sum((p1.double() - z1) * p, dim=0) / pp)
+                t["alpha_rel_err"], t["beta_rel_err"] = (float(
+                    ((a - b).abs() / b.abs()).max()) for a, b in zip(
+                        implied["kernel"], implied["plain"]))
+                if not (t["max_abs_err"] <= 1e-4
+                        and t["alpha_rel_err"] <= 1e-4
+                        and t["beta_rel_err"] <= 1e-4):
+                    raise RuntimeError("cg step kernel r=%d is off its plain "
+                                       "version: %s" % (r, json.dumps(t)))
+        torch.cuda.synchronize()
+        t["launches"] = cg.cg_device_steps - before
+        if t["launches"] != steps or state.tolist() != [0, steps]:
+            raise RuntimeError("cg step kernel r=%d: %d launches, state %s"
+                               % (r, t["launches"], state.tolist()))
+        for name, pairs in times.items():
+            t["ms" if name == "kernel" else "plain_ms"] = float(np.median(
+                [a.elapsed_time(b) for a, b in pairs]))
+        # at the least P, AP, X, R and minv read, X, R and P written once;
+        # 14 operations an entry (three sums, three updates, Z)
+        t["bound_ms"], t["bound_by"] = bound(
+            4 * (7 * n * r + n), 14.0 * n * r, torch.float32)
+        log("kernel cg step n=%d r=%d f32 (band D=%d), median of %d steps "
+            "by CUDA events: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+            "(%s); first step against the plain one: %.3e of the largest "
+            "entry (limit 1e-4), implied alpha %.3e and beta %.3e relative "
+            "(limit 1e-4)"
+            % (n, r, out["D"], steps, t["ms"], t["plain_ms"], t["bound_ms"],
+               t["bound_by"], t["max_abs_err"], t["alpha_rel_err"],
+               t["beta_rel_err"]))
+    del s
     return out
 
 
@@ -3130,11 +3234,12 @@ def _p17_record():
     record each launch's shape; returns ``stop``, ``stop()`` giving
     ``{"leaf": n, "leaf_B": [...], "leaf_shapes": [(B, m, m, dtype), ...],
     "leaf_by_shape": {"(B, m) dtype": n, ...}, "dia": n, "dia_r": [...], "dia_shapes": [(n, D, d_min, r, dtype),
-    ...]}``."""
-    from george_tpu_torch.ops import chol, dia
+    ...], "cg": n}``, ``"cg"`` the CG step kernel's launches."""
+    from george_tpu_torch.ops import cg, chol, dia
 
     chol.chol_kernel_launches = 0
     dia.dia_kernel_launches = 0
+    cg.cg_device_steps = 0
     shapes = {"leaf": [], "dia": []}
     leaf, launch = chol.cholesky_cuda, dia._launch
 
@@ -3161,7 +3266,8 @@ def _p17_record():
                     for b, m, m2, dt in sorted(set(shapes["leaf"]))},
                 "dia": dia.dia_kernel_launches,
                 "dia_r": sorted(set(r for _, _, _, r, _ in shapes["dia"])),
-                "dia_shapes": sorted(set(shapes["dia"]))}
+                "dia_shapes": sorted(set(shapes["dia"])),
+                "cg": cg.cg_device_steps}
 
     return stop
 
@@ -3989,9 +4095,9 @@ def phase_examples(device):
         if name == "spatial":
             out[label]["weak_leaves"] = result["weak_leaves"]
         log("examples (18) %s: %.3f s; leaf kernel launches %d (shapes %s), "
-            "DIA kernel launches %d (r %s)"
+            "DIA kernel launches %d (r %s), CG step kernel launches %d"
             % (label, secs, launches["leaf"], launches["leaf_shapes"],
-               launches["dia"], launches["dia_r"]))
+               launches["dia"], launches["dia_r"], launches["cg"]))
         for B, m, _, dt in launches["leaf_shapes"]:
             if (B, m, dt) in checked:
                 continue
@@ -4230,13 +4336,14 @@ def main():
     t_start = time.perf_counter()
     smi = phase_device()
     import torch
-    from george_tpu_torch.ops import chol, dia
+    from george_tpu_torch.ops import cg, chol, dia
 
     device = "cuda"
     build_s = phase_build()
     kern = phase_kernel()
     x, y_mv, y, yerr, kernel = bench_dia_dataset(N_DIA)
     kdia = phase_kernel_dia(x, y_mv, kernel)
+    kcg = phase_kernel_cg((x, y_mv, y, yerr, kernel))
     tile = phase_kernel_tiled()
     torch.cuda.empty_cache()
 
@@ -4332,17 +4439,27 @@ def main():
 
     data = (x, y, yerr, kernel)
     dia.dia_kernel_launches = 0
+    cg.cg_device_steps = 0
     direct = phase_sparse_direct(data)
     log("sparse direct: DIA kernel launches %d (the (K + D) alpha of the "
-        "exact gradients)" % dia.dia_kernel_launches)
+        "exact gradients), CG step kernel launches %d (no CG on this path)"
+        % (dia.dia_kernel_launches, cg.cg_device_steps))
+    if cg.cg_device_steps != 0:
+        raise RuntimeError("the sparse direct path launched the CG step")
 
     dia.dia_kernel_launches = 0
+    cg.cg_device_steps = 0
     it, gp_it, y_it = phase_sparse_iterative(data, direct["float64"])
     dia_launches = dia.dia_kernel_launches
-    log("sparse iterative f32: DIA kernel launches %d" % dia_launches)
+    cg_launches = cg.cg_device_steps
+    log("sparse iterative f32: DIA kernel launches %d, CG step kernel "
+        "launches %d" % (dia_launches, cg_launches))
     if dia_launches == 0:
         raise RuntimeError("the sparse iterative path never launched the DIA "
                            "kernel")
+    if cg_launches == 0:
+        raise RuntimeError("the sparse iterative path never launched the CG "
+                           "step kernel")
     it["profile"] = profile_calls(
         [lambda: gp_it.grad_log_likelihood(y_it)], it["grad_s"] * 1e3,
         "sparse iterative f32 grad_log_likelihood")
@@ -4351,15 +4468,25 @@ def main():
 
     # the DIA kernel under log_prob_fn's CG and SLQ adjoints
     dia.dia_kernel_launches = 0
+    cg.cg_device_steps = 0
     sparse_lp = phase_sparse_log_prob(data, direct["float64"])
     launches_lp = dia.dia_kernel_launches
-    log("sparse log_prob: DIA kernel launches %d (value + gradient + "
-        "minimize)" % launches_lp)
+    cg_launches_lp = cg.cg_device_steps
+    log("sparse log_prob: DIA kernel launches %d, CG step kernel launches "
+        "%d (value + gradient + minimize)" % (launches_lp, cg_launches_lp))
     if launches_lp == 0:
         raise RuntimeError("log_prob_fn's sparse path never launched the DIA "
                            "kernel")
+    if cg_launches_lp == 0:
+        raise RuntimeError("log_prob_fn's sparse path never launched the CG "
+                           "step kernel")
     torch.cuda.empty_cache()
+    cg.cg_device_steps = 0
     ell = phase_ell_2d()
+    cg_launches_ell = cg.cg_device_steps
+    log("sparse 2-D ELL: CG step kernel launches %d" % cg_launches_ell)
+    if cg_launches_ell == 0:
+        raise RuntimeError("the ELL path never launched the CG step kernel")
 
     # the inference layer on the dense path (no hand-written kernel on it)
     log("nuts: starting %.1f s into the run" % (time.perf_counter() - t_start))
@@ -4387,9 +4514,11 @@ def main():
     for r in range(P17_RANKS):
         log("parallel main path, rank %d: leaf kernel launches %d (B %s) "
             "under HODLRSolver(mesh=) f64; DIA kernel launches %d (r %s) "
-            "under sharded_predict on the sparse solver"
+            "and CG step kernel launches %d under sharded_predict on the "
+            "sparse solver"
             % (r, mesh_b[r]["leaf"], mesh_b[r]["leaf_B"],
-               pred_sparse[r]["dia"], pred_sparse[r]["dia_r"]))
+               pred_sparse[r]["dia"], pred_sparse[r]["dia_r"],
+               pred_sparse[r]["cg"]))
     sym_g = [par["g"][r]["launches"] for r in range(P17_RANKS)]
     for r in range(P17_RANKS):
         log("parallel main path, rank %d: leaf kernel launches %d (B %s) "
@@ -4404,7 +4533,8 @@ def main():
     log(json.dumps({"summary": {
         "build_s": build_s, "cusolver_ms": kern["cusolver_ms"],
         "leaf_kernel": {k: v for k, v in kern.items() if "x" in k},
-        "f32": f32, "f64": f64, "dia_kernel": kdia, "tiled_kernel": tile,
+        "f32": f32, "f64": f64, "dia_kernel": kdia, "cg_kernel": kcg,
+        "tiled_kernel": tile,
         "sparse_direct": direct, "sparse_iterative": it,
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
         "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
@@ -4511,6 +4641,29 @@ def main():
          "bound_ms_r%d_f64" % dw: dk["bound_ms"],
          "library_ms_r%d_f64" % dw: dk["library_ms"],
          "max_abs_err_r%d_f64" % dw: dk["max_abs_err"]},
+        {"name": "cg_step", "route": "cuda",
+         "source": "george_tpu_torch/csrc/cg.cu",
+         "replaces": "none (XLA fused the loop body of "
+                     "george_tpu/solvers/sparse.py::pcg_solve)",
+         "launches": cg_launches, "max_abs_err": kcg["r1"]["max_abs_err"],
+         "alpha_rel_err": kcg["r1"]["alpha_rel_err"],
+         "beta_rel_err": kcg["r1"]["beta_rel_err"],
+         "ms": kcg["r1"]["ms"], "plain_ms": kcg["r1"]["plain_ms"],
+         "bound_ms": kcg["r1"]["bound_ms"],
+         "bound_by": kcg["r1"]["bound_by"],
+         "shape": "n=%d r=1 f32" % kcg["n"],
+         "ms_r16": kcg["r16"]["ms"], "plain_ms_r16": kcg["r16"]["plain_ms"],
+         "bound_ms_r16": kcg["r16"]["bound_ms"],
+         "max_abs_err_r16": kcg["r16"]["max_abs_err"],
+         "alpha_rel_err_r16": kcg["r16"]["alpha_rel_err"],
+         "beta_rel_err_r16": kcg["r16"]["beta_rel_err"],
+         "launches_in": "sparse iterative f32 path",
+         "launches_log_prob": cg_launches_lp,
+         "launches_ell_2d": cg_launches_ell,
+         "launches_sharded_predict_per_rank": [c["cg"] for c in pred_sparse],
+         "launches_examples": {k: v["launches"]["cg"]
+                               for k, v in ex.items()
+                               if isinstance(v, dict)}},
         {"name": "cholesky_tiled", "route": "cuda",
          "source": "george_tpu_torch/csrc/chol.cu",
          "replaces": "george_tpu/ops/chol.py:61",

@@ -127,6 +127,7 @@ def load():
         # block, blocks per CTA, shared bytes), then the stream
         chol_plan = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         dia_plan = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr]
+        cg_step = [ptr] * 9 + [i64, i32, ctypes.c_double, i32, i32, i32, ptr]
         signatures = {
             "george_chol_f32": chol_plan,
             "george_chol_f64": chol_plan,
@@ -138,6 +139,12 @@ def load():
             "george_dia_f32": dia_plan,
             "george_dia_f64": dia_plan,
             "george_dia_prepare": [],
+            # itemsize, n, r, out (grid, shared bytes)
+            "george_cg_plan": [i32, i64, i32, ptr],
+            # X, R, P, AP, minv, rz, b2, state, work, n, r, tol2, maxiter,
+            # grid, shared bytes, the stream
+            "george_cg_step_f32": cg_step,
+            "george_cg_step_f64": cg_step,
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -10,7 +10,10 @@ data the neighborhoods are contiguous and the structure is a band (DIA):
   on a band by the hand-written DIA kernel (``ops/dia.py``, the plain
   version on CPU tensors), otherwise by a gather and a per-row contraction
   (``ell_apply``, torch ops, as XLA ran it in the JAX package);
-* solves by Jacobi-preconditioned conjugate gradients (a Python loop);
+* solves by Jacobi-preconditioned conjugate gradients: a Python loop of
+  the apply and one CG step (``ops/cg.py``: a hand-written CUDA kernel on
+  CUDA tensors) that keeps the stopping test on the device, read to the
+  host every ``CG_READ_EVERY`` steps;
 * ``log_determinant`` by stochastic Lanczos quadrature (SLQ) over one
   ``(n, num_probes)`` block of Rademacher probes;
 * gradients by ``d ll / d theta = 1/2 a^T (dK/dtheta) a
@@ -44,6 +47,7 @@ from ..diagnostics import annotate, count_host_read
 from ..neighbors import (
     knn_matrix_to_csr, normalize_nns, radius_neighbors_csr,
 )
+from ..ops.cg import cg_step, cg_workspace
 from ..ops.dia import DiaOperator, dia_matvec
 from ..parallel.collectives import replicated, row_shard
 from .banded import (
@@ -57,8 +61,11 @@ __all__ = ["SparseSolver", "ell_from_csr", "ell_matvec", "ell_values",
            "cg_solve", "cg_diff_solve", "lanczos_fn_matvec", "pcg_solve",
            "slq_logdet"]
 
-# iterations of :func:`pcg_solve` on every path (a program counter)
+# iterations of :func:`pcg_solve` and :func:`cg_solve` on every path (a
+# program counter)
 cg_iteration_count = 0
+# steps :func:`cg_solve` runs between two reads of its stopping test
+CG_READ_EVERY = 8
 
 
 def ell_from_csr(nbr_idx, row_ptr, pad_multiple=8):
@@ -258,7 +265,7 @@ def pcg_solve(matvec, precond, b, tol=1e-10, maxiter=200, rowsum=None):
     iteration (counted in ``diagnostics.host_reads``; the iterations in
     ``cg_iteration_count``). With the rows split over ranks, ``rowsum``
     completes each column sum over them, so every rank stops at the same
-    iteration."""
+    iteration. :func:`cg_solve` takes this loop only for such rows."""
     global cg_iteration_count
     red = rowsum or (lambda t: t)
     squeeze = b.ndim == 1
@@ -295,11 +302,48 @@ def _host_any(t):
 
 
 def cg_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000, rowsum=None):
-    """Jacobi-preconditioned CG for SPD ``A x = b``: :func:`pcg_solve`
-    with the preconditioner ``r / precond_diag``."""
-    Minv = (1.0 / precond_diag)[:, None]
-    return pcg_solve(matvec, lambda R: Minv * R, b, tol=tol, maxiter=maxiter,
-                     rowsum=rowsum)
+    """Jacobi-preconditioned CG for SPD ``A x = b`` (preconditioner ``r /
+    precond_diag``): :func:`pcg_solve`'s iteration and answer, its
+    iteration count in ``cg_iteration_count`` too, with the stopping test
+    kept on the device. Each step is ``matvec`` then one ``ops/cg.py``
+    step (the CUDA kernel on CUDA tensors, its plain version on CPU
+    tensors), which also sets the device's ``done`` flag and counts the
+    iterations; the host reads the pair every :data:`CG_READ_EVERY` steps
+    (``diagnostics.host_reads``: ``ceil(iterations / CG_READ_EVERY) + 1``
+    a solve), and the steps enqueued past the stop change nothing. Rows
+    split over ranks (``rowsum`` given, see :func:`pcg_solve`) take
+    :func:`pcg_solve`'s loop: there a column sum needs a collective between
+    its partial and its use."""
+    global cg_iteration_count
+    if rowsum is not None:
+        Minv = (1.0 / precond_diag)[:, None]
+        return pcg_solve(matvec, lambda R: Minv * R, b, tol=tol,
+                         maxiter=maxiter, rowsum=rowsum)
+    squeeze = b.ndim == 1
+    B = b[:, None] if squeeze else b
+    minv = 1.0 / precond_diag
+    X = torch.zeros_like(B)
+    R = B.clone()                   # B - A X at X = 0; the kernel writes it
+    P = minv[:, None] * R
+    rz = torch.sum(R * P, dim=0)
+    b2 = torch.clamp_min(torch.sum(B * B, dim=0), torch.finfo(B.dtype).tiny)
+    tol2 = tol * tol
+    state = torch.zeros(2, dtype=torch.int32, device=B.device)   # done, it
+    state[0] = ~torch.any(torch.sum(R * R, dim=0) / b2 > tol2) | (maxiter <= 0)
+    work = (cg_workspace(X, R, P, minv, rz, b2, state) if X.is_cuda
+            else None)
+    steps = 0
+    while True:
+        if steps % CG_READ_EVERY == 0:
+            count_host_read()
+            done, it = state.tolist()
+            if done:
+                break
+        X, R, P, rz, state = cg_step(X, R, P, matvec(P).contiguous(), minv,
+                                     rz, b2, state, tol2, maxiter, work)
+        steps += 1
+    cg_iteration_count += it
+    return (X[:, 0] if squeeze else X), it
 
 
 def cg_diff_solve(matvec, b, precond_diag, tol=1e-10, maxiter=1000):

@@ -245,6 +245,137 @@ def test_cg_solve_matches():
     assert it == 7
 
 
+def _per_iteration_cg(matvec, b, precond_diag, tol, maxiter, history=None):
+    """The Jacobi-preconditioned CG loop as the port ran it before the
+    stopping test stayed on the device: one host test before every
+    iteration. ``history`` collects the largest ``||r||^2 / ||b||^2`` of
+    every test."""
+    squeeze = b.ndim == 1
+    B = b[:, None] if squeeze else b
+    Minv = (1.0 / precond_diag)[:, None]
+    X = torch.zeros_like(B)
+    R = B
+    Z = Minv * R
+    P = Z
+    rz = torch.sum(R * Z, dim=0)
+    b2 = torch.clamp_min(torch.sum(B * B, dim=0), torch.finfo(B.dtype).tiny)
+    tol2 = tol * tol
+    it = 0
+    while it < maxiter:
+        ratio = torch.sum(R * R, dim=0) / b2
+        if history is not None:
+            history.append(float(ratio.max()))
+        if not bool(torch.any(ratio > tol2)):
+            break
+        AP = matvec(P)
+        denom = torch.sum(P * AP, dim=0)
+        alpha = rz / torch.where(denom > 0, denom, 1.0)
+        X = X + alpha * P
+        R = R - alpha * AP
+        Z = Minv * R
+        rz_new = torch.sum(R * Z, dim=0)
+        P = Z + (rz_new / torch.where(rz > 0, rz, 1.0)) * P
+        rz = rz_new
+        it += 1
+    return (X[:, 0] if squeeze else X), it
+
+
+def _tol_stopping_at(history, multiple):
+    """A tolerance at which the loop whose residual ``history`` is given
+    stops at its first iteration count that is (``multiple``) or is not a
+    multiple of 8, and the count: the geometric mean of that test's ratio
+    and the smallest before it, so that no earlier test passes."""
+    for k in range(1, len(history)):
+        if (k % 8 == 0) == multiple and history[k] < min(history[:k]):
+            return (history[k] * min(history[:k])) ** 0.25, k
+    raise AssertionError("no such count in the history")
+
+
+@pytest.fixture(scope="module")
+def cg_rig():
+    """The band operator, right-hand sides of 1 and 4 columns, and for
+    each the tolerances at which the per-iteration loop converges at a
+    multiple of 8 iterations and at a count that is not one."""
+    _, mv_t, pdiag, n = _band_operator()
+    B = torch.as_tensor(np.random.default_rng(5).standard_normal((n, 4)))
+    pd = torch.as_tensor(pdiag)
+    rhs = {1: B[:, 0], 4: B}
+    tols = {}
+    for r, b in rhs.items():
+        history = []
+        _per_iteration_cg(mv_t, b, pd, 1e-30, 2000, history)
+        for multiple in (True, False):
+            tols[r, multiple] = _tol_stopping_at(history, multiple)
+    return mv_t, pd, rhs, tols
+
+
+@pytest.mark.parametrize("case", ["converged_at_8k", "converged_off_8k",
+                                  "zero_b", "cap7", "cap8", "cap9"])
+@pytest.mark.parametrize("r", [1, 4], ids=["vector", "block"])
+def test_cg_solve_is_the_per_iteration_loop(cg_rig, r, case, monkeypatch):
+    """``cg_solve`` on CPU tensors (the plain step, the test read every
+    ``CG_READ_EVERY`` steps) gives the per-iteration loop's solution bit
+    for bit and its iteration count, with ``ceil(iterations / 8) + 1``
+    host reads and no kernel step."""
+    from george_tpu_torch import diagnostics
+    from george_tpu_torch.ops import cg as tcg
+
+    mv_t, pd, rhs, tols = cg_rig
+    b, tol, maxiter = rhs[r], 1e-30, 1000
+    if case.startswith("converged"):
+        tol, expected = tols[r, case == "converged_at_8k"]
+        assert (expected % 8 == 0) == (case == "converged_at_8k")
+    elif case == "zero_b":
+        b, expected = torch.zeros_like(b), 0
+    else:
+        maxiter = expected = int(case[3:])
+    monkeypatch.setattr(tcg, "cg_device_steps", 0)
+    x_ref, it_ref = _per_iteration_cg(mv_t, b, pd, tol, maxiter)
+    count, reads = TS.cg_iteration_count, diagnostics.host_reads
+    x, it = TS.cg_solve(mv_t, b, pd, tol=tol, maxiter=maxiter)
+    assert it_ref == expected and it == it_ref
+    assert x.shape == b.shape and torch.equal(x, x_ref)
+    assert TS.cg_iteration_count - count == it
+    assert diagnostics.host_reads - reads == -(-it // TS.CG_READ_EVERY) + 1
+    assert tcg.cg_device_steps == 0
+
+
+def test_other_cg_loops_take_no_step(cg_rig, monkeypatch):
+    """``pcg_solve`` with a callable preconditioner (the H-matrix solver's)
+    and ``cg_solve`` on row-sharded vectors (``rowsum`` given) run the
+    per-iteration loop: one host read a test, no CG step, none on the
+    card; the Jacobi ``cg_solve`` takes the step."""
+    from george_tpu_torch import diagnostics
+    from george_tpu_torch.ops import cg as tcg
+
+    mv_t, pd, rhs, _ = cg_rig
+    b = rhs[4]
+    steps = []
+
+    def counted(*args, **kw):
+        steps.append(1)
+        return tcg.cg_step(*args, **kw)
+
+    monkeypatch.setattr(TS, "cg_step", counted)
+    monkeypatch.setattr(tcg, "cg_device_steps", 0)
+    x_ref, it_ref = _per_iteration_cg(mv_t, b, pd, 1e-8, 1000)
+    Minv = (1.0 / pd)[:, None]
+    for solve in (
+            lambda: TS.pcg_solve(mv_t, lambda R: Minv * R, b, tol=1e-8,
+                                 maxiter=1000),
+            lambda: TS.cg_solve(mv_t, b, pd, tol=1e-8, maxiter=1000,
+                                rowsum=lambda t: t)):
+        reads = diagnostics.host_reads
+        x, it = solve()
+        assert it == it_ref and torch.equal(x, x_ref)
+        assert diagnostics.host_reads - reads == it + 1
+    assert steps == [] and tcg.cg_device_steps == 0
+    x, it = TS.cg_solve(mv_t, b, pd, tol=1e-8, maxiter=1000)
+    assert it == it_ref and torch.equal(x, x_ref)
+    assert len(steps) == -(-it // TS.CG_READ_EVERY) * TS.CG_READ_EVERY
+    assert tcg.cg_device_steps == 0
+
+
 def test_slq_logdet_and_lanczos_match():
     mv_j, mv_t, _, n = _band_operator()
     key = jax.random.PRNGKey(SEED)
@@ -459,10 +590,13 @@ def test_fused_loglike_spans_and_counters(monkeypatch):
     the spans ``sparse.cg`` (the value's solve and the two its adjoints
     call), ``sparse.slq`` and ``sparse.adjoint`` (the two backwards);
     ``cg_iteration_count`` grows by the iterations the solves report and
-    ``diagnostics.host_reads`` by one stopping test more than that each;
-    value and gradient bit-identical with the profiler on and off."""
+    ``diagnostics.host_reads`` by the reads of their stopping tests, one
+    before the first step and one every ``CG_READ_EVERY`` steps up to the
+    stop; no CG step ran on a card; value and gradient bit-identical with
+    the profiler on and off."""
     from torch.profiler import ProfilerActivity, profile
     from george_tpu_torch import diagnostics
+    from george_tpu_torch.ops import cg as tcg
 
     x, y, yerr = _data(1, 300)
     _, kt = _kernels(1)
@@ -480,6 +614,7 @@ def test_fused_loglike_spans_and_counters(monkeypatch):
         return out
 
     monkeypatch.setattr(TS, "cg_solve", recorded)
+    monkeypatch.setattr(tcg, "cg_device_steps", 0)
     count, reads = TS.cg_iteration_count, diagnostics.host_reads
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         g1, v1 = f(th)
@@ -489,7 +624,9 @@ def test_fused_loglike_spans_and_counters(monkeypatch):
                                      "sparse.adjoint")] == [3, 1, 2]
     assert len(iters) == 3 and 0 < max(iters) < gp.solver.maxiter
     assert TS.cg_iteration_count - count == sum(iters)
-    assert diagnostics.host_reads - reads == sum(iters) + len(iters)
+    assert diagnostics.host_reads - reads == sum(
+        -(-i // TS.CG_READ_EVERY) + 1 for i in iters)
+    assert tcg.cg_device_steps == 0
     # the protocol's solves count on the same counter
     count = TS.cg_iteration_count
     gp.solver.apply_inverse(y)
