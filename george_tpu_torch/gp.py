@@ -7,9 +7,11 @@
   ``solver=`` with the same ``device`` and ``dtype``.
 * ``grad_log_likelihood`` is autograd of the whole marginal likelihood
   through the solver's differentiable factorization (``loglike_fn``) or,
-  for a solver without one, through a dense Cholesky; matrix-free solvers
-  (HODLR with ``grad_mode="hutchinson"``, the sparse solver) supply a
-  Hutchinson-estimated gradient instead.
+  for a solver without one, through a dense Cholesky. A matrix-free
+  solver (HODLR with ``grad_mode="hutchinson"``, the sparse and H-matrix
+  solvers) supplies only its kernel block and ``diag(a a^T - K^{-1})``,
+  exact or Hutchinson-estimated (``gradient_terms``); the GP adds the mean
+  and white-noise blocks (``_assemble_gradient``).
 * ``log_prob_fn`` is the samplers' surface: a pure function of the active
   parameter tensor through the same fused likelihood, which composes with
   ``torch.func.grad`` and ``vmap`` over chains (``sampling/``).
@@ -585,6 +587,26 @@ class GP(ModelSet):
             self._fused = value_and_grad
         return self._fused
 
+    def _assemble_gradient(self, alpha, g_kernel, diag_A):
+        """The gradient over the active parameters, ``[mean, white noise,
+        kernel]``, from ``a = K^{-1} (y - mu)``, the kernel block over the
+        kernel's full parameter vector and ``diag_A = diag(a a^T -
+        K^{-1})``:
+
+            d ll / d mean = (d mu)^T a,
+            d ll / d wn   = 1/2 (d wn)^T (e^{wn} * diag_A),
+
+        both in the original point order."""
+        pieces = []
+        if len(self.mean):
+            pieces.append(self._call_mean_gradient(self._x) @ alpha)
+        if len(self.white_noise):
+            scale = np.exp(self._call_white_noise(self._x)) * diag_A
+            pieces.append(
+                0.5 * self._call_white_noise_gradient(self._x) @ scale)
+        pieces.append(np.asarray(g_kernel)[self.kernel.unfrozen_mask])
+        return np.concatenate(pieces)
+
     def _grad_log_likelihood_host(self, y, quiet=False):
         """Gradient for host-side (non-traceable) mean or white-noise
         models, from
@@ -597,36 +619,22 @@ class GP(ModelSet):
             if quiet:
                 return np.zeros(len(self), dtype=np.float64)
             raise
-
         info = np.outer(alpha, alpha) - self.solver.get_inverse()
-
-        pieces = []
-        if len(self.mean):
-            pieces.append(self._call_mean_gradient(self._x) @ alpha)
-        if len(self.white_noise):
-            scale = np.exp(self._call_white_noise(self._x)) * np.diag(info)
-            jac = self._call_white_noise_gradient(self._x)
-            pieces.append(0.5 * jac @ scale)
-        if len(self.kernel):
-            dK = self.kernel.get_gradient(
-                self._x, device=self.device)  # (n, n, n_params)
-            pieces.append(
-                0.5 * np.tensordot(dK, info, axes=[(0, 1), (0, 1)])
-            )
-        return np.concatenate(pieces) if pieces else np.empty(0)
+        dK = self.kernel.get_gradient(self._x, include_frozen=True,
+                                      device=self.device)  # (n, n, T)
+        g_kernel = 0.5 * np.tensordot(dK, info, axes=[(0, 1), (0, 1)])
+        return self._assemble_gradient(alpha, g_kernel, np.diag(info))
 
     def _grad_log_likelihood_matrix_free(self, y, quiet=False):
-        """Hutchinson trace-estimated gradient through a matrix-free
-        solver."""
+        """Gradient through a matrix-free solver: its kernel block and
+        ``diag(a a^T - K^{-1})``, exact or Hutchinson-estimated."""
         try:
             alpha = self._compute_alpha(y, False)
         except ValueError:
             if quiet:
                 return np.zeros(len(self), dtype=np.float64)
             raise
-        g = self.solver.grad_log_likelihood(
-            self, self._x, alpha, self.unfrozen_mask
-        )
+        g = self._assemble_gradient(alpha, *self.solver.gradient_terms(alpha))
         if getattr(self.solver, "debug", False):
             self._debug_gradient_check(y, g)
         return g
@@ -666,28 +674,17 @@ class GP(ModelSet):
             # gradient piece is a contraction
             info = torch.outer(alpha, alpha) - torch.cholesky_inverse(L)
             del L
-        alpha_h = alpha.cpu().numpy()
-        pieces = []
-        if len(self.mean):
-            pieces.append(self._call_mean_gradient(self._x) @ alpha_h)
-        if len(self.white_noise):
-            scale = np.exp(self._call_white_noise(self._x)) * (
-                info.diagonal().cpu().numpy())
-            pieces.append(
-                0.5 * self._call_white_noise_gradient(self._x) @ scale)
-        if len(self.kernel):
-            # one forward-mode derivative of the gram per active parameter
-            g_kernel = []
-            for i in np.flatnonzero(self.kernel.unfrozen_mask):
-                tangent = torch.zeros_like(theta)
-                tangent[i] = 1.0
-                _, dK = torch.func.jvp(
-                    lambda th: self.kernel.gram(th, x, x), (theta,),
-                    (tangent,))
-                g_kernel.append(0.5 * float(torch.sum(dK * info)))
-                del dK
-            pieces.append(np.asarray(g_kernel))
-        g_exact = np.concatenate(pieces) if pieces else np.empty(0)
+        # one forward-mode derivative of the gram per active parameter
+        g_kernel = np.zeros(len(theta))
+        for i in np.flatnonzero(self.kernel.unfrozen_mask):
+            tangent = torch.zeros_like(theta)
+            tangent[i] = 1.0
+            _, dK = torch.func.jvp(
+                lambda th: self.kernel.gram(th, x, x), (theta,), (tangent,))
+            g_kernel[i] = 0.5 * float(torch.sum(dK * info))
+            del dK
+        g_exact = self._assemble_gradient(
+            alpha.cpu().numpy(), g_kernel, info.diagonal().cpu().numpy())
         g_est = np.asarray(g_est, dtype=np.float64)
         rep = {
             "exact": g_exact,

@@ -32,7 +32,7 @@ stay small.
   of a matrix whose spectrum clusters at 1.
 * Gradients: exact quadratic terms and Hutchinson traces, deflated by the
   kernel's dominant subspace with a fitted control variate
-  (:meth:`HMatrixSolver.grad_log_likelihood`). The fused likelihood
+  (:meth:`HMatrixSolver.gradient_terms`). The fused likelihood
   (:meth:`HMatrixSolver.loglike_fn`) differentiates its CG solve implicitly
   and its SLQ log-determinant by a Hutchinson adjoint. Its reverse mode
   keeps no pair-function graph: the far factors (:class:`_FarFactors`),
@@ -1291,10 +1291,12 @@ class HMatrixSolver(object):
             Q, _ = torch.linalg.qr(C * self._valid[:, None])
         return Q
 
-    def grad_log_likelihood(self, gp, x, alpha, unfrozen_mask):
-        """Gradient of the GP marginal likelihood over the active GP
-        parameters: exact ``1/2 a^T dK_k a``, and ``tr(K^{-1} dK_k)`` by
-        Hutchinson with a deflation basis ``Q`` as a fitted control variate.
+    def gradient_terms(self, alpha):
+        """The gradient terms for ``a = alpha``: the kernel block over the
+        kernel's full parameter vector, exact ``1/2 a^T dK_k a`` and
+        ``tr(K^{-1} dK_k)`` by Hutchinson with a deflation basis ``Q`` as a
+        fitted control variate, and ``diag(a a^T - K^{-1})`` with
+        ``diag(K^{-1})`` from the plain probes.
 
         With ``P = I - Q Q^T`` and ``Y = K^{-1} Q`` (one multi-RHS PCG batch
         ``[Q, probes]``), ``tr(Q^T K^{-1} dK Q) + E_u[(P u)^T K^{-1} dK (P
@@ -1357,22 +1359,9 @@ class HMatrixSolver(object):
             grads[k] = alpha_term - 0.5 * trace_est
             del dK_av
 
-        mean_g = []
-        if len(gp.mean):
-            mu_g = gp._call_mean_gradient(np.asarray(x))
-            mean_g = list(np.dot(mu_g, alpha))
-        wn_g = []
-        if len(gp.white_noise):
-            wn = gp._call_white_noise(np.asarray(x))
-            wng = gp._call_white_noise_gradient(np.asarray(x))
-            with torch.no_grad():
-                diag_Kinv = self._unpad(torch.mean(probes * Kinv_u, dim=1))
-            diag_A = alpha ** 2 - diag_Kinv
-            wn_g = list(
-                0.5 * np.sum((np.exp(wn) * diag_A)[None, :] * wng, axis=1))
-
-        kmask = gp.kernel.unfrozen_mask
-        return np.array(mean_g + wn_g + list(grads[kmask]))
+        with torch.no_grad():
+            diag_Kinv = self._unpad(torch.mean(probes * Kinv_u, dim=1))
+        return grads, alpha ** 2 - diag_Kinv
 
     # pickling drops the device state; a restored solver needs a compute
     def __getstate__(self):

@@ -202,32 +202,11 @@ class HODLRStructure(object):
         rp_all = np.concatenate([lv["row_piv"] for lv in self.levels])
         cp_all = np.concatenate([lv["col_piv"] for lv in self.levels])
         pair_offset = np.cumsum([0] + [lv["p"] for lv in self.levels])
-        rowsC, pairC, rowsR = [], [], []
-        row_offset = [0]
-        for li, lv in enumerate(self.levels):
-            s, p = lv["s"], lv["p"]
-            base = np.arange(p, dtype=np.int64)[:, None] * 2 * s
-            left = (base + np.arange(s, dtype=np.int64)[None, :]).ravel()
-            right = (
-                base + s + np.arange(s, dtype=np.int64)[None, :]
-            ).ravel()
-            pid = (
-                pair_offset[li]
-                + np.repeat(np.arange(p, dtype=np.int64), s)
-            )
-            rowsC.append(left)
-            rowsR.append(right)
-            pairC.append(pid)
-            row_offset.append(row_offset[-1] + p * s)
         self.flat = {
             "c": c,
             "rp_all": rp_all,                        # (P, c)
             "cp_all": cp_all,
-            "rowsC": np.concatenate(rowsC),          # (T,)
-            "rowsR": np.concatenate(rowsR),
-            "pair_of_row": np.concatenate(pairC),
             "pair_offset": [int(v) for v in pair_offset],
-            "row_offset": [int(v) for v in row_offset],
             # the pivots each row's skeleton entries are taken at, per
             # pair: its J (right block) for a left row, its I for a right
             # row
@@ -846,19 +825,24 @@ def _refine(solve, matvec, Xt, steps, rowsum=lambda x: x):
     ``z += omega F^{-1} r`` with the per-column ``omega = <r, K d> / <K d,
     K d>`` (GMRES(1) with the cascade as right preconditioner), so
     ``||r'|| <= ||r||`` even where the cascade's inverse is poor.
-    ``rowsum`` completes the row sums of a sharded layout."""
+    ``rowsum`` completes the row sums of a sharded layout. Returns the
+    refined ``Z``, the first residual ``Xt - K F^{-1} Xt`` and the first
+    step's ``K d`` (``None`` without steps)."""
     Z = solve(Xt)
-    R = Xt - matvec(Z)
+    R = R0 = Xt - matvec(Z)
+    KD0 = None
     tiny = torch.finfo(Xt.dtype).tiny
     for _ in range(steps):
         D = solve(R)
         KD = matvec(D)
+        if KD0 is None:
+            KD0 = KD
         w = rowsum(torch.sum(R * KD, dim=1)) / torch.clamp_min(
             rowsum(torch.sum(KD * KD, dim=1)), tiny
         )
         Z = Z + w[:, None] * D
         R = R - w[:, None] * KD
-    return Z
+    return Z, R0, KD0
 
 
 def hodlr_solve_refined(pair_fn, theta, xpad, valid, diag_pad, struct,
@@ -868,7 +852,7 @@ def hodlr_solve_refined(pair_fn, theta, xpad, valid, diag_pad, struct,
     costs one factor solve and one assembly-free matvec, and contracts the
     float32 cascade's forward error toward the matvec's rounding floor."""
     Xt, squeeze = _as_t(X)
-    Z = _refine(
+    Z, _, _ = _refine(
         lambda V: _solve_t(factors, struct, V),
         lambda V: _matvec_factors_t(factors, struct, V),
         Xt, steps, lambda x: _rowsum(struct, x),
@@ -893,6 +877,21 @@ def dK_products(pair_fn, theta, xpad, valid, diag_pad, struct, Vt):
     eye = torch.eye(theta.shape[0], dtype=theta.dtype, device=theta.device)
     return torch.func.vmap(lambda e: torch.func.jvp(mv, (theta,), (e,))[1])(
         eye)
+
+
+def _contract_dK(struct, left, dK):
+    """The Hutchinson kernel gradient from the ``dK`` products of ``[a |
+    u_1 .. u_P]`` (:func:`dK_products`, ``(T, 1 + P, nloc)``) and their
+    left partners ``left = [a | l_1 .. l_P]`` (``(1 + P, nloc)``):
+
+        1/2 a^T dK_t a - 1/2 mean_p l_p^T dK_t u_p ,
+
+    summed in float64 over this rank's rows and reduced over the ranks."""
+    f64 = torch.float64
+    with torch.no_grad():
+        sums = _rowsum(struct, torch.einsum("ki,tki->tk", left.to(f64),
+                                            dK.to(f64)))
+    return 0.5 * (sums[:, 0] - torch.mean(sums[:, 1:], dim=1))
 
 
 def hodlr_loglike_and_grad_hutchinson(
@@ -974,34 +973,22 @@ def hodlr_loglike_and_grad_hutchinson(
             #    r_u)] reuses the first refinement direction's matvec.
             # The series only converges for spectral radius < 1, so the
             # correction is gated on the measured residual ratio.
-            sol0 = solve(rhs)
-            R0 = rhs - mvf(sol0)
+            sol, R0, KD0 = _refine(solve, mvf, rhs, refine_steps, rowsum)
             trE = -torch.mean(rowsum(torch.sum(probes * R0[1:], dim=1)))
+            trE2 = torch.mean(rowsum(
+                torch.sum(probes * (R0 - KD0)[1:], dim=1)))
             rho2 = torch.mean(
                 rowsum(torch.sum(R0[1:] ** 2, dim=1))
                 / torch.clamp_min(rowsum(torch.sum(probes ** 2, dim=1)),
                                   1.0)
             )
-            sol, R, trE2 = sol0, R0, None
-            tiny = torch.finfo(dtype).tiny
-            for _ in range(refine_steps):
-                D = solve(R)
-                KD = mvf(D)
-                if trE2 is None:
-                    trE2 = torch.mean(rowsum(
-                        torch.sum(probes * (R0 - KD)[1:], dim=1)))
-                w = rowsum(torch.sum(R * KD, dim=1)) / torch.clamp_min(
-                    rowsum(torch.sum(KD * KD, dim=1)), tiny
-                )
-                sol = sol + w[:, None] * D
-                R = R - w[:, None] * KD
             logdet = logdet + torch.where(
                 rho2 < 0.25, trE - 0.5 * trE2, torch.zeros_like(trE)
             )
         else:
             sol = solve(rhs)
-        # the solves and the likelihood in _CASCADE; the forward-mode
-        # pass and the gradient's contractions in the working dtype
+        # the solves and the likelihood in _CASCADE, the forward-mode
+        # pass in the working dtype, the gradient's sums in float64
         quad = rowsum(torch.dot(r_pad.to(sol.dtype), sol[0]))
         ll = (-0.5 * (quad + logdet + n * _LOG_2PI)).to(dtype)
         alpha, Kinv_u = sol[0].to(dtype), sol[1:].to(dtype)
@@ -1009,12 +996,8 @@ def hodlr_loglike_and_grad_hutchinson(
 
     dK_av_t = dK_products(pair_fn, theta, xpad, valid, diag_pad, struct,
                           av)                       # (T, 1 + P, n_pad)
-    quad_terms = 0.5 * rowsum(
-        torch.einsum("i,ti->t", alpha, dK_av_t[:, 0, :]))
-    trace_terms = 0.5 * torch.mean(
-        rowsum(torch.einsum("pi,tpi->tp", Kinv_u, dK_av_t[:, 1:, :])), dim=1
-    )
-    return ll, quad_terms - trace_terms
+    left = torch.cat([alpha[None, :], Kinv_u], dim=0)
+    return ll, _contract_dK(struct, left, dK_av_t).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -1257,7 +1240,7 @@ class HODLRSolver(object):
         neighbors of each point (``compute(..., nns=)`` passes a neighbor
         matrix instead).
     :param grad_mode: ``"exact"`` (autograd through :meth:`loglike_fn`) or
-        ``"hutchinson"`` (matrix-free, :meth:`grad_log_likelihood`);
+        ``"hutchinson"`` (matrix-free, :meth:`gradient_terms`);
         ``compute_grad=True`` selects the latter.
     :param pivots: ``"aca"`` (kernel-adaptive, chosen at compute-time
         theta) or ``"fps"`` (geometry only).
@@ -1724,52 +1707,46 @@ class HODLRSolver(object):
         ``dK_bar/dtheta_{i-1}``, for inspection at small N."""
         return self.apply_forward(np.eye(self._struct.n), i=i)
 
-    def grad_log_likelihood(self, gp, x, alpha, unfrozen_mask):
-        """Matrix-free GP gradient (``grad_mode='hutchinson'``): exact
-        quadratic terms, Hutchinson-estimated traces, through this
-        solver's jvp matvecs."""
-        n = self._struct.n
-        alpha = np.asarray(alpha)
-        rng = np.random.default_rng(self.seed + 1)
-        probes = rng.choice([-1.0, 1.0], size=(n, self.num_probes))
-        if self.sym:
-            # with K = W W^T, tr(K^{-1} dK) = E_u[(W^{-T}u)^T dK (W^{-T}u)]:
-            # a quadratic form in a symmetric operator, with half the
-            # variance of the K^{-1}u pairing below
-            w = self.apply_inverse_sym_W_transpose(probes)
-            probe_l, probe_r = w, w
-        else:
-            probe_l, probe_r = self.apply_inverse(probes), probes
-
-        nparam = int(self.kernel.full_size)
-        kernel_grads = np.empty(nparam)
-        for k in range(nparam):
-            dK_alpha = self.apply_forward(alpha, k + 1)
-            dK_u = self.apply_forward(probe_r, k + 1)
-            quad_term = 0.5 * float(alpha @ dK_alpha)
-            trace_term = 0.5 * float(
-                np.mean(np.sum(probe_l * dK_u, axis=0))
-            )
-            kernel_grads[k] = quad_term - trace_term
-
-        mean_g = []
-        if len(gp.mean):
-            mu_g = gp._call_mean_gradient(np.asarray(x))
-            mean_g = list(np.dot(mu_g, alpha))
-        wn_g = []
-        if len(gp.white_noise):
-            wn = gp._call_white_noise(np.asarray(x))
-            wng = gp._call_white_noise_gradient(np.asarray(x))
-            # E[w w^T] = W^{-T} W^{-1} = K^{-1} in the symmetric branch, so
-            # the same products estimate diag(K^{-1}) either way
-            diag_Kinv = (np.mean(probe_l ** 2, axis=1) if self.sym
-                         else np.mean(probe_r * probe_l, axis=1))
-            diag_A = alpha ** 2 - diag_Kinv
-            wn_g = list(
-                0.5 * np.sum((np.exp(wn) * diag_A)[None, :] * wng, axis=1)
-            )
-        kmask = gp.kernel.unfrozen_mask
-        return np.array(mean_g + wn_g + list(kernel_grads[kmask]))
+    def gradient_terms(self, alpha):
+        """The matrix-free (``grad_mode='hutchinson'``) gradient terms for
+        ``a = alpha`` (original point order): the kernel block ``1/2 a^T
+        dK_t a - 1/2 mean_u[l_u^T dK_t r_u]`` over the kernel's full
+        parameter vector, and ``diag(a a^T - K^{-1})`` from the same
+        probes. The ``dK`` products of ``[a | r_u]`` are one forward-mode
+        pass (:func:`dK_products`), contracted as
+        :func:`hodlr_loglike_and_grad_hutchinson` does. The probes ``u``
+        pair as ``r_u = u``, ``l_u = K^{-1} u``; under ``sym``, with ``K =
+        W W^T``, as ``r_u = l_u = W^{-T} u``: a quadratic form in a
+        symmetric operator, with half the variance, and ``E[l_u r_u^T] =
+        K^{-1}`` either way."""
+        st, f64 = self._struct, torch.float64
+        alpha = np.asarray(alpha, dtype=np.float64)
+        probes = np.random.default_rng(self.seed + 1).choice(
+            [-1.0, 1.0], size=(st.n, self.num_probes))
+        V = np.zeros((st.n_pad, 1 + self.num_probes))
+        V[:st.n] = np.concatenate([alpha[:, None], probes], 1)[self._perm]
+        V = torch.as_tensor(V, device=self.device)    # [a | u], float64
+        U = V[:, 1:].to(self.dtype)
+        valid = _rows(st, self._valid)
+        with torch.no_grad():
+            a = _rows(st, V[:, :1]).T
+            if self.sym:
+                self._ensure_sym()
+                left = _sqrt_solve_t(self._sym_factors, st, _rows(st, U).T,
+                                     True)
+                right = left = left.to(f64) * valid
+            else:
+                right = _rows(st, V[:, 1:]).T
+                left = _rows(st, self._solve(U)).T.to(f64) * valid
+        dK = dK_products(self.kernel.pair_fn, self._theta, self._xpad,
+                         self._valid, self._diag_pad, st,
+                         torch.cat([a, right]).to(self.dtype))
+        g_kernel = _contract_dK(st, torch.cat([a, left]), dK)
+        with torch.no_grad():
+            diag_Kinv = torch.mean(right * left, dim=0)
+        diag_Kinv = self._unpad(self._gather(diag_Kinv[:, None]), True)
+        count_host_read()
+        return g_kernel.cpu().numpy(), alpha ** 2 - diag_Kinv
 
     # -- symmetric factor surface ----------------------------------------
 

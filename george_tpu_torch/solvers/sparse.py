@@ -905,16 +905,18 @@ class SparseSolver(object):
 
     # -- gradients ---------------------------------------------------------
 
-    def grad_log_likelihood(self, gp, x, alpha, unfrozen_mask):
-        """Gradient of the GP marginal likelihood over the active GP
-        parameter vector (mean, white-noise, kernel blocks).
+    def gradient_terms(self, alpha):
+        """The gradient terms for ``a = alpha``: the kernel block over the
+        kernel's full parameter vector and ``diag(a a^T - K^{-1})``.
 
-        On the banded direct path it is exact: one autograd sweep of the
-        fused block-Cholesky likelihood in theta and the diagonal.
-        Otherwise the kernel block is the Hutchinson estimate
-        ``1/2 a^T dK_k a - 1/2 mean_u[(K^{-1} u)^T dK_k u]``: one
-        multi-RHS CG for the probes, then for each theta direction the
-        tangent value table applied to ``[a | probes]`` in one launch.
+        On the banded direct path both are exact: one autograd sweep of
+        the fused block-Cholesky likelihood in theta and the diagonal,
+        whose ``d ll / d diag_i = 1/2 (a_i^2 - K^{-1}_ii)``. Otherwise the
+        kernel block is the Hutchinson estimate ``1/2 a^T dK_k a - 1/2
+        mean_u[(K^{-1} u)^T dK_k u]``: one multi-RHS CG for the probes,
+        then for each theta direction the tangent value table applied to
+        ``[a | probes]`` in one launch; ``diag(K^{-1})`` comes from the
+        same probes.
         """
         alpha = np.asarray(alpha, dtype=np.float64)
         a = self._tensor(alpha)
@@ -925,43 +927,26 @@ class SparseSolver(object):
             diag = self._diag.clone().requires_grad_(True)
             ll = self._direct_loglike(theta, diag, r)
             g_theta, g_diag = torch.autograd.grad(ll, (theta, diag))
-            g_kernel = self._numpy(g_theta)
-            # d ll / d diag_i = 1/2 (a_i^2 - K^{-1}_ii)
-            half_diag_A = self._numpy(g_diag)
-        else:
-            probes = self._probe_block(self.grad_probes, self.seed + 1)
-            Kinv_u = self._solve(probes)
-            # this rank's rows (all of them unsharded)
-            av = self._local(torch.cat([a[:, None], probes], dim=1))
-            Kinv_u_l = self._local(Kinv_u)
-            zero = torch.zeros_like(self._diag)
-            g_kernel = np.zeros(self._theta.shape[0])
-            for k in range(len(g_kernel)):
-                dvals = self._tangent_values(k)
-                with torch.no_grad():
-                    dK_av = self._apply(dvals, av, zero)
-                    quad = self._rowsum(torch.dot(av[:, 0], dK_av[:, 0]))
-                    trace = torch.mean(self._rowsum(torch.sum(
-                        Kinv_u_l * dK_av[:, 1:], dim=0)))
-                g_kernel[k] = 0.5 * float(quad) - 0.5 * float(trace)
-                del dvals, dK_av
-            # diag(K^{-1}) by Hutchinson with the same probes
+            return self._numpy(g_theta), 2.0 * self._numpy(g_diag)
+        probes = self._probe_block(self.grad_probes, self.seed + 1)
+        Kinv_u = self._solve(probes)
+        # this rank's rows (all of them unsharded)
+        av = self._local(torch.cat([a[:, None], probes], dim=1))
+        Kinv_u_l = self._local(Kinv_u)
+        zero = torch.zeros_like(self._diag)
+        g_kernel = np.zeros(self._theta.shape[0])
+        for k in range(len(g_kernel)):
+            dvals = self._tangent_values(k)
             with torch.no_grad():
-                diag_Kinv = self._numpy(torch.mean(probes * Kinv_u, dim=1))
-            half_diag_A = 0.5 * (alpha ** 2 - diag_Kinv)
-
-        mean_g = []
-        if len(gp.mean):
-            mean_g = list(np.dot(gp._call_mean_gradient(np.asarray(x)),
-                                 alpha))
-        wn_g = []
-        if len(gp.white_noise):
-            wn = gp._call_white_noise(np.asarray(x))
-            wng = gp._call_white_noise_gradient(np.asarray(x))
-            wn_g = list(np.sum((np.exp(wn) * half_diag_A)[None, :] * wng,
-                               axis=1))
-        kmask = gp.kernel.unfrozen_mask
-        return np.array(mean_g + wn_g + list(g_kernel[kmask]))
+                dK_av = self._apply(dvals, av, zero)
+                quad = self._rowsum(torch.dot(av[:, 0], dK_av[:, 0]))
+                trace = torch.mean(self._rowsum(torch.sum(
+                    Kinv_u_l * dK_av[:, 1:], dim=0)))
+            g_kernel[k] = 0.5 * float(quad) - 0.5 * float(trace)
+            del dvals, dK_av
+        with torch.no_grad():
+            diag_Kinv = self._numpy(torch.mean(probes * Kinv_u, dim=1))
+        return g_kernel, alpha ** 2 - diag_Kinv
 
     def __getstate__(self):
         state = self.__dict__.copy()
