@@ -160,7 +160,20 @@ Phases:
     n = 1e5, rank 48, in float32 as (a) and in float64 against the anchor
     and the JAX package's CPU float64 value (1e-7); (d) ``BASELINE.md``
     row 3 (``tests/test_golden.py``'s qp data at n = 1e4): HODLR rank 64
-    against the dense solver, float64, 1e-6.
+    against the dense solver, float64, 1e-6;
+20. the CUDA graph of ``HODLRSolver.loglike_fn``, after phase 19, on the
+    benchmark's smooth (rank 12) and quasi-periodic (rank 48)
+    configurations at n = 1e5 in float32: ``grad_and_value(log_prob_fn)``
+    eagerly and through the graph, each call read to the host, in ms a
+    call (median of 21), peak device memory allocated and reserved, and
+    the leaf kernel's launches (the graphed route's warm-up, checking
+    replay and replays, its capture none, each as many as an eager
+    call's); whether the graph was
+    captured (and the reason where it was not); the two routes' values
+    and gradients against each other (1e-5 and 1e-3 relative: a gate for
+    gross faults, float32 rounding parting them at ~1e-4 of the
+    gradient); and a replay under
+    ``torch.cuda.set_sync_debug_mode("error")``.
 
 Any failed check raises, and the script exits nonzero without printing its
 last line, ``{"ok": true, "device": {...}}``. Run it from the repository
@@ -1849,6 +1862,125 @@ def phase_bench_configs(device, card, repeats=BENCH_REPEATS):
                  card)
     out["seconds"] = secs
     log("bench configs (19) on %s: seconds %s" % (card, json.dumps(secs)))
+    return out
+
+
+GRAPH_CONFIGS = {"smooth": dict(min_size=128, rank=12),
+                 "qp": dict(min_size=128, rank=48)}
+
+
+def _graph_variant(device, variant, card, calls=21):
+    """One configuration of phase 20 (see the module docstring)."""
+    import warnings
+
+    import torch
+    import george_tpu_torch as gtt
+    from george_tpu_torch.ops import chol
+    from george_tpu_torch.solvers import hodlr
+
+    x, y, yerr, kernel = DATASETS[variant](N_MAIN)
+    gp = gtt.GP(kernel, solver=gtt.HODLRSolver, device=device,
+                dtype=torch.float32, **GRAPH_CONFIGS[variant])
+    gp.compute(x, yerr)
+    f = torch.func.grad_and_value(gp.log_prob_fn(x, y, yerr))
+    theta0 = np.asarray(gp.get_parameter_vector())
+    rng = np.random.default_rng(20)
+    thetas = [torch.as_tensor(theta0 + 0.01 * rng.standard_normal(
+        theta0.shape), device=device, dtype=torch.float32)
+        for _ in range(calls + 3)]
+
+    def call(theta):
+        g, v = f(theta)
+        return float(v.cpu()), g.cpu().numpy()
+
+    def timed():
+        # each route's reserved peak from the blocks in use, not from
+        # what the other route's calls left cached
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        chol.chol_kernel_launches = 0
+        first = time.perf_counter()
+        answers = [call(t) for t in thetas[:3]]
+        first = time.perf_counter() - first
+        ms = []
+        for t in thetas[3:]:
+            t0 = time.perf_counter()
+            call(t)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return (answers, float(np.median(ms)), first,
+                torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.max_memory_reserved() / 1e9,
+                chol.chol_kernel_launches)
+
+    route = hodlr.HODLRSolver._graph_route
+    hodlr.HODLRSolver._graph_route = lambda *args: False  # the eager sweeps
+    try:
+        eager, eager_ms, eager_first, eager_gb, eager_res, eager_n = timed()
+    finally:
+        hodlr.HODLRSolver._graph_route = route
+    captures = hodlr.graph_captures
+    replays = hodlr.graph_replays
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        graphed, graph_ms, graph_first, graph_gb, graph_res, graph_n = \
+            timed()
+    refused = [str(w.message) for w in caught if "CUDA graph" in
+               str(w.message)]
+    captured = gp.solver._graph is not None
+    vgap = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(graphed, eager))
+    ggap = max(float(np.max(np.abs(a[1] - b[1])) / np.max(np.abs(b[1])))
+               for a, b in zip(graphed, eager))
+    out = {"captured": captured, "refused": refused[0] if refused else None,
+           "captures": hodlr.graph_captures - captures,
+           "replays": hodlr.graph_replays - replays,
+           "eager_ms": eager_ms, "graph_ms": graph_ms,
+           "eager_first3_s": eager_first, "graph_first3_s": graph_first,
+           "eager_peak_gb": eager_gb, "graph_peak_gb": graph_gb,
+           "eager_reserved_gb": eager_res, "graph_reserved_gb": graph_res,
+           "eager_leaf_launches": eager_n, "graph_leaf_launches": graph_n,
+           "value_gap": vgap, "grad_gap": ggap}
+    # the leaf kernel's launches: eager, one set a call; graphed, the
+    # warm-up's, the constructor's checking replay's and one set a replay,
+    # the capture's none
+    per_call = eager_n // len(thetas)
+    want_n = per_call * (out["replays"] + 2) if captured else graph_n
+    if not (per_call >= 1 and eager_n == per_call * len(thetas)
+            and graph_n == want_n and (not captured or
+                                       gp.solver._graph.launches == per_call)):
+        raise RuntimeError("hodlr graph %s: leaf launches eager %d, graphed "
+                           "%d (want %d)" % (variant, eager_n, graph_n,
+                                             want_n))
+    if captured:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g, v = f(thetas[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["sync_free_replay"] = True
+    log("hodlr graph (20) %s on %s: %s" % (variant, card, json.dumps(out)))
+    # float32: the two routes round differently (the graph's LU batches
+    # in cuBLAS slices, its reverse sweep on the forward's LU factors);
+    # the gate is for gross faults, the benchmark holds both to float64
+    if not (vgap <= 1e-5 and ggap <= 1e-3):
+        raise RuntimeError("hodlr graph %s: %s %.3g / %.3g off the eager "
+                           "sweeps" % (variant, "the replay is" if captured
+                                       else "the fallback is", vgap, ggap))
+    if variant == "smooth" and not captured:
+        raise RuntimeError("hodlr graph: the smooth configuration was not "
+                           "captured: %s" % out["refused"])
+    return out
+
+
+def phase_hodlr_graph(device, card):
+    """Phase 20: the graphed ``loglike_fn`` against the eager sweeps."""
+    import torch
+
+    out = {}
+    for variant in ("smooth", "qp"):
+        out[variant] = _graph_variant(device, variant, card)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4390,6 +4522,9 @@ def main():
     bench_launches["baseline_row3"] = bench["baseline_row3"]["launches"]
     torch.cuda.empty_cache()
 
+    # phase 20: the CUDA graph of loglike_fn against the eager sweeps
+    graph = phase_hodlr_graph(device, smi)
+
     # the symmetric factorization and GP.sample, float64 then float32
     chol.chol_kernel_launches = 0
     sym = {str(dt).split(".")[-1]: phase_sym(device, N_MAIN, dt, f64["grad"])
@@ -4539,7 +4674,7 @@ def main():
         "sparse_ell_2d": ell, "nuts_512": nuts, "hodlr_chains": chains,
         "sparse_log_prob": sparse_lp, "sym": sym, "selfcheck_knn": selfcheck,
         "lcm": lcm, "hmatrix": hm, "checkpoint": ckpt, "parallel": par,
-        "examples": ex, "bench_configs": bench,
+        "examples": ex, "bench_configs": bench, "hodlr_graph": graph,
         "seconds": time.perf_counter() - t_start}}))
     r1, r16, r17 = kdia["r1"], kdia["r16"], kdia["r17"]
     # the tiled kernel's line leads with its worst shape against the library

@@ -60,6 +60,7 @@ checks its factorization against the compressed operator
 (:meth:`HODLRSolver._factorization_self_check`).
 """
 
+import contextlib
 import math
 import warnings
 
@@ -68,6 +69,7 @@ import torch
 
 from ..diagnostics import annotate, backward_mark, count_host_read, timer
 from ..neighbors import knn_indices, morton_sort_samples
+from ..ops import chol as _chol
 from ..ops.chol import cholesky as _batched_cholesky
 from ..parallel.collectives import broadcast, replicated, row_shard
 from .linalg import as_points
@@ -545,8 +547,8 @@ def _lowrank_rows_t(pair_fn, theta, xpad, valid, struct):
             # ~eps/lam null-space noise (design invariant).
             rhs = torch.einsum("pkc,kps->pcs", Ml,
                                halves[-1].to(_CASCADE))
-            halves[-1] = torch.linalg.solve(Gl, rhs).transpose(0, 1).to(
-                E.dtype)
+            Q = _RidgeSolve.apply(Gl, rhs)[0]
+            halves[-1] = Q.transpose(0, 1).to(E.dtype)
         out.append(torch.stack(halves, dim=2).reshape(c, nloc))
     return out
 
@@ -563,10 +565,74 @@ def _all_lowrank_t(pair_fn, theta, xpad, valid, struct):
     return out
 
 
+@contextlib.contextmanager
+def _cusolver_lu(A):
+    """cuSOLVER's and cuBLAS's routines for the LU calls inside on the
+    CUDA batch ``A``. PyTorch's default factors a large batch of small
+    matrices with MAGMA's batched LU, which synchronizes the device (a
+    host wait, and a CUDA graph capture refuses it)."""
+    if not A.is_cuda:
+        yield
+        return
+    before = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+
+
+class _RidgeSolve(torch.autograd.Function):
+    """``(X, LU, pivots)``: ``X = G^{-1} B`` for the batch of ridge systems
+    ``G`` ``(p, c, c)``, factored by :func:`_cusolver_lu`'s routines and
+    solved as PyTorch's default solves (cuBLAS's batched ``getrs``, which
+    the preference would give the solve too, swaps rows a column at a
+    time: it took the quasi-periodic configuration's graphed value and
+    gradient from 68.5 to 178.9 ms a call on an H100).
+    No read of the device's error flag: a singular system gives a
+    non-finite likelihood, as in the JAX package. Its derivatives are
+    ``torch.linalg.solve``'s own, on the same factors; a backward that
+    builds a graph (``create_graph``, ``torch.func``) factors ``G^T``
+    again, as ``solve``'s does, so that higher derivatives hold."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(G, B):
+        with _cusolver_lu(G):
+            LU, piv, _ = torch.linalg.lu_factor_ex(G)
+        return torch.linalg.lu_solve(LU, piv, B), LU, piv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        X, LU, piv = output
+        ctx.mark_non_differentiable(LU, piv)
+        ctx.save_for_backward(inputs[0], X, LU, piv)
+        ctx.save_for_forward(X, LU, piv)
+
+    @staticmethod
+    def backward(ctx, gX, *_):
+        G, X, LU, piv = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            gB = _RidgeSolve.apply(G.mT, gX)[0]
+        else:
+            gB = torch.linalg.lu_solve(LU, piv, gX, adjoint=True)
+        return -(gB @ X.mT), gB
+
+    @staticmethod
+    def jvp(ctx, dG, dB):
+        X, LU, piv = ctx.saved_tensors
+        return torch.linalg.lu_solve(LU, piv, dB - dG @ X), None, None
+
+
 def _core_inv_slogdet(core):
-    """Per-level SMW core inverse and log|det| (plain ``linalg``)."""
-    _, ld = torch.linalg.slogdet(core)
-    return torch.linalg.inv(core), ld
+    """Per-level SMW core inverse and log|det| (plain ``linalg``). The
+    inverse does not read its error flag back to the host: a singular core
+    gives a non-finite likelihood, which ``GP.log_prob_fn`` maps to
+    ``-inf``, as the JAX package's ``inv`` does."""
+    with _cusolver_lu(core):
+        _, ld = torch.linalg.slogdet(core)
+        return torch.linalg.inv_ex(core, check_errors=False)[0], ld
 
 
 def _leaf_cholesky(pair_fn, theta, xb, vb, db):
@@ -1211,6 +1277,139 @@ def hodlr_sqrt_solve(sym_factors, struct, X, transpose=False):
 
 
 # ---------------------------------------------------------------------------
+# One value and gradient of loglike_fn as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# calls of a HODLRSolver.loglike_fn function served by a replay of the
+# solver's CUDA graph, and captures of that graph, failed ones included
+# (read them as ``george_tpu_torch.solvers.hodlr.graph_replays`` and
+# ``graph_captures``)
+graph_replays = 0
+graph_captures = 0
+
+
+def _value_and_grad(f, args):
+    """``(f(*args), *df/dargs)`` by one eager forward and one reverse sweep
+    of plain autograd. Its reverse sweep solves with the forward's LU
+    factors (``linalg_lu_solve``); a differentiable one (``torch.func``,
+    which builds a graph of the gradient) calls ``linalg_solve`` again in
+    the backward of ``slogdet``, whose error check reads the device."""
+    with torch.enable_grad():
+        args = [a.detach().requires_grad_(True) for a in args]
+        value = f(*args)
+        grads = torch.autograd.grad(value, args)
+    return (value.detach(),) + tuple(grads)
+
+
+def _one_grad_transform():
+    """Whether the caller runs under plain autograd or exactly one
+    ``torch.func.grad`` level: not under ``vmap`` (the samplers' chains,
+    which run eagerly) and not under a nested transform (a second
+    derivative, which the graph does not hold)."""
+    level = torch._C._functorch.maybe_current_level()
+    return level is None or (
+        level == 1 and torch._C._functorch.peek_interpreter_stack().key()
+        == torch._C._functorch.TransformType.Grad)
+
+
+class _LoglikeGraph(object):
+    """One value and gradient of ``f(theta_k, diag, r)``, the eager
+    likelihood of :meth:`HODLRSolver.loglike_fn`, captured in a CUDA graph
+    at the shapes, dtypes and device of ``args``: the kernels eager
+    autograd runs, in its order, replayed with no Python between them.
+
+    On a side stream: one eager warm-up, so that library handles,
+    workspaces and the structure's device index tables exist before the
+    capture; the capture; then one replay at the warm-up's inputs, which
+    has to give the warm-up's answers to within rounding (``sqrt(eps)`` of
+    the largest entry), or the constructor raises: a capture that missed
+    work never answers. The warm-up's cached blocks are released after
+    (they belong to the side stream, which nothing uses again); the
+    graph's memory pool stays reserved while the graph lives. ``key`` is
+    what the graph was captured for. The capture records the leaf
+    kernel's launches without running them, so it leaves
+    ``ops.chol.chol_kernel_launches`` as it found it, and each replay adds
+    them (``launches``)."""
+
+    @staticmethod
+    def holds(args):
+        """Whether a graph can hold a call at ``args``: CUDA tensors."""
+        return all(a.is_cuda for a in args)
+
+    def __init__(self, f, key, args):
+        self.key = key
+        self.inputs = [a.detach().clone() for a in args]
+        dev = self.inputs[0].device
+        stream = torch.cuda.Stream(dev)
+        current = torch.cuda.current_stream(dev)
+        stream.wait_stream(current)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            want = _value_and_grad(f, self.inputs)
+        before = _chol.chol_kernel_launches
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.outputs = _value_and_grad(f, self.inputs)
+        finally:
+            # a capture that fails raises before the context restores the
+            # caller's stream
+            torch.cuda.set_stream(current)
+            self.launches = _chol.chol_kernel_launches - before
+            _chol.chol_kernel_launches = before
+        self._replay()
+        names = ("value", "theta_k gradient", "diag gradient", "r gradient")
+        for name, got, ref in zip(names, self.outputs, want):
+            gap = float((got - ref).abs().max() / ref.abs().max())
+            if not gap <= math.sqrt(torch.finfo(ref.dtype).eps):
+                raise RuntimeError("the replayed %s is %.3g (relative) off "
+                                   "the eager one" % (name, gap))
+        del want
+        torch.cuda.empty_cache()
+
+    def _replay(self):
+        self.graph.replay()
+        _chol.chol_kernel_launches += self.launches
+
+    def run(self, args):
+        """The value and gradients at ``args``: copies into the captured
+        inputs, one replay, copies of the outputs."""
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self._replay()
+        return tuple(o.clone() for o in self.outputs)
+
+
+class _GraphedLoglike(torch.autograd.Function):
+    """``loglike(theta_k, diag, r)`` whose value and gradients come
+    together from the solver's graph
+    (:meth:`HODLRSolver._graph_value_and_grad`). The forward returns
+    ``(value, d/dtheta_k, d/ddiag, d/dr)``; the backward scales the three
+    by the value's cotangent. It holds no second derivative: a backward
+    that builds a graph under plain autograd (``create_graph=True``)
+    raises, where nested ``torch.func`` transforms never reach it.
+    Arguments: ``(solver, eager, theta_k, diag, r)``."""
+
+    @staticmethod
+    def forward(solver, eager, theta_k, diag, r):
+        return solver._graph_value_and_grad(eager, (theta_k, diag, r))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        if (torch.is_grad_enabled()
+                and torch._C._functorch.maybe_current_level() is None):
+            raise RuntimeError(
+                "HODLRSolver.loglike_fn's CUDA graph holds first derivatives "
+                "only: take higher ones with torch.func (torch.func.hessian), "
+                "whose nested transforms run the sweeps eagerly")
+        return (None, None) + tuple(g * t for t in ctx.saved_tensors)
+
+
+# ---------------------------------------------------------------------------
 # Solver class (george-compatible protocol)
 # ---------------------------------------------------------------------------
 
@@ -1329,6 +1528,11 @@ class HODLRSolver(object):
         self._perm = None
         self._sym_factors = None
         self._sym_theta = None
+        # the CUDA graph of loglike_fn (_LoglikeGraph), the compute it
+        # belongs to, and whether a capture failed on this solver
+        self._graph = None
+        self._generation = 0
+        self._graph_refused = False
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
@@ -1338,9 +1542,12 @@ class HODLRSolver(object):
     # -- setup -------------------------------------------------------------
 
     def compute(self, x, yerr=0.0, nns=None, **kwargs):
-        # the symmetric factors belong to the previous points and theta
+        # the symmetric factors and the graph belong to the previous points
+        # and theta
         self._sym_factors = None
         self._sym_theta = None
+        self._graph = None
+        self._generation += 1
         x = as_points(x)
         n = len(x)
         yerr2 = np.atleast_1d(np.asarray(yerr, dtype=np.float64)) ** 2
@@ -1579,14 +1786,21 @@ class HODLRSolver(object):
         hierarchical factorization (differentiable end-to-end); ``diag``
         and ``r`` are tensors in the original point order. It composes with
         ``torch.func.vmap`` and ``grad``: under ``vmap`` over chains the leaf
-        Cholesky of every chain is one kernel launch."""
+        Cholesky of every chain is one kernel launch.
+
+        A call that takes :meth:`_graph_route` (a gradient on the card,
+        outside ``vmap``, unsharded) gets its value and gradients from one
+        CUDA graph of the forward and reverse sweeps, captured at its first
+        such call after each ``compute`` and replayed after; every other
+        call runs the sweeps eagerly."""
         st = self._struct
         pair = self.kernel.pair_fn
         perm = torch.as_tensor(self._perm, device=self.device)
         xpad, valid = self._xpad, self._valid
         n = st.n
+        generation = self._generation
 
-        def loglike(theta_k, diag, r):
+        def eager(theta_k, diag, r):
             theta_k = backward_mark(theta_k)
             with annotate("hodlr.factor"):
                 diag_pad, r_pad = self._pad_diag_rhs(perm, diag, r)
@@ -1600,6 +1814,12 @@ class HODLRSolver(object):
             out = (-0.5 * (quad + logdet + n * _LOG_2PI)).to(r_pad.dtype)
             return backward_mark(out, "hodlr.backward")
 
+        def loglike(theta_k, diag, r):
+            args = (theta_k, diag, r)
+            if self._graph_route(generation, args):
+                return _GraphedLoglike.apply(self, eager, *args)[0]
+            return eager(*args)
+
         return loglike
 
     def _pad_diag_rhs(self, perm, diag, r):
@@ -1609,6 +1829,43 @@ class HODLRSolver(object):
         pad = self._struct.n_pad - self._struct.n
         return (torch.cat([diag[perm], diag.new_ones(pad)]),
                 torch.cat([r[perm], r.new_zeros(pad)]))
+
+    def _graph_route(self, generation, args):
+        """Whether a call of the ``loglike_fn`` function made at compute
+        ``generation`` takes the CUDA graph at ``args``: a gradient is
+        asked for (grad mode on, an input that requires one) by plain
+        autograd or one ``torch.func.grad``, not under ``vmap``
+        (:func:`_one_grad_transform`); every input is a CUDA tensor
+        (:meth:`_LoglikeGraph.holds`); the rows are not split over a mesh (its collectives
+        stay out of graphs); the function belongs to the latest compute;
+        and no capture failed on this solver."""
+        return (not self._graph_refused and generation == self._generation
+                and self._struct.shard is None and torch.is_grad_enabled()
+                and _LoglikeGraph.holds(args)
+                and any(a.requires_grad for a in args)
+                and _one_grad_transform())
+
+    def _graph_value_and_grad(self, eager, args):
+        """``(value, *gradients)`` of ``eager`` at ``args`` from this
+        solver's graph, captured first where it has none at these dtypes,
+        devices and shapes (``compute`` drops it). A capture that raises
+        leaves the solver eager for good, with a warning; this call then
+        runs the sweeps eagerly."""
+        global graph_captures, graph_replays
+        key = tuple((a.dtype, a.device, tuple(a.shape)) for a in args)
+        if self._graph is None or self._graph.key != key:
+            self._graph = None
+            graph_captures += 1
+            try:
+                self._graph = _LoglikeGraph(eager, key, args)
+            except RuntimeError as err:
+                self._graph_refused = True
+                warnings.warn("HODLRSolver: the CUDA graph of the likelihood "
+                              "and its gradient was not captured, so it "
+                              "runs eagerly: %s" % err, RuntimeWarning)
+                return _value_and_grad(eager, args)
+        graph_replays += 1
+        return self._graph.run(args)
 
     def residual_fn(self):
         """Pure ``f(theta_kernel, diag, r) -> |K_bar z - r| / |r|``, the
@@ -1804,7 +2061,7 @@ class HODLRSolver(object):
     def __getstate__(self):
         state = self.__dict__.copy()
         for k in ("_factors", "_xpad", "_valid", "_diag_pad", "_theta",
-                  "_sym_factors", "_struct", "_perm_t"):
+                  "_sym_factors", "_struct", "_perm_t", "_graph"):
             state.pop(k, None)
         state["_sym_theta"] = None
         state["computed"] = False
@@ -1819,3 +2076,6 @@ class HODLRSolver(object):
         self.__dict__.setdefault("_sym_factors", None)
         self.__dict__.setdefault("mesh", None)
         self.__dict__.setdefault("_shard", None)
+        self.__dict__.setdefault("_graph", None)
+        self.__dict__.setdefault("_generation", 0)
+        self.__dict__.setdefault("_graph_refused", False)

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 from george_tpu import kernels as jk
 from george_tpu.solvers import hodlr as JH
+import george_tpu_torch as gtt
 from george_tpu_torch import convert
 from george_tpu_torch import kernels as tk
 from george_tpu_torch.solvers import hodlr as TH
@@ -351,3 +352,177 @@ def test_float32_exact_gradient_no_worse_than_reference(rig):
     d_jax = np.abs(np.asarray(gj, np.float64) - g64).max() / scale
     d_port = np.abs(gt.double().numpy() - g64).max() / scale
     assert np.isfinite(d_port) and d_port <= 2.0 * d_jax
+
+
+def test_ex_swaps_hold_value_and_gradients_to_reference(rig):
+    """The factorization's ``inv_ex`` and ``_RidgeSolve`` (no device read):
+    the float64 value and its gradients in theta, the diagonal and the
+    residual against the JAX package's, held as
+    ``test_loglike_and_exact_gradient_match`` holds the value and theta
+    gradient."""
+    pair = rig.kj.pair_fn
+    _, _, xp, vl, _ = rig.jargs
+
+    def ll_jax(th, dp, y):
+        f, ld = JH.hodlr_factor(pair, th, xp, vl, dp, rig.st)
+        z = JH.hodlr_solve(f, rig.st, y)
+        return -0.5 * (jnp.dot(y, z) + ld + rig.n * jnp.log(2 * jnp.pi))
+
+    lj, gj = jax.jit(jax.value_and_grad(ll_jax, argnums=(0, 1, 2)))(
+        jnp.asarray(rig.theta), jnp.asarray(rig.dp), jnp.asarray(rig.y))
+    pt, _, xpt, vlt, _ = rig.targs
+
+    def ll_port(th, dp, y):
+        f, ld = TH.hodlr_factor(pt, th, xpt, vlt, dp, rig.stt)
+        z = TH.hodlr_solve(f, rig.stt, y)
+        return -0.5 * (torch.dot(y, z) + ld + rig.n * np.log(2 * np.pi))
+
+    gt, lt = torch.func.grad_and_value(ll_port, argnums=(0, 1, 2))(
+        _t(rig.theta), _t(rig.dp), _t(rig.y))
+    assert abs(float(lt) - float(lj)) / abs(float(lj)) < SHARED
+    for a, b in zip(gt, gj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-8,
+                                   atol=1e-8 * np.abs(np.asarray(b)).max())
+
+
+def test_singular_core_gives_non_finite_not_an_error():
+    """A singular SMW core gives a non-finite inverse and log-determinant,
+    as the JAX package's ``inv`` does, and raises nothing."""
+    core = torch.zeros(2, 4, 4, dtype=torch.float64)
+    inv, ld = TH._core_inv_slogdet(core)
+    assert not bool(torch.isfinite(inv).all())
+    assert not bool(torch.isfinite(ld).any())
+
+
+# -- the CUDA graph route of HODLRSolver.loglike_fn, on the CPU ------------
+
+class _EagerGraph(object):
+    """``_LoglikeGraph`` with its replay replaced by an eager value and
+    gradient, on the CPU: the route's plumbing without a card."""
+
+    @staticmethod
+    def holds(args):
+        return True
+
+    def __init__(self, f, key, args):
+        self.key, self.f = key, f
+
+    def run(self, args):
+        grads, value = torch.func.grad_and_value(self.f, argnums=(0, 1, 2))(
+            *args)
+        return (value,) + tuple(grads)
+
+
+def _route_gp():
+    """A HODLR GP on 700 sorted points (3 levels), its active parameters
+    including the white noise, so that the diagonal carries a gradient."""
+    rng = np.random.default_rng(3)
+    n = 700
+    x = np.sort(rng.uniform(0, 60, n))
+    y = np.sin(0.3 * x) + 0.3 * rng.standard_normal(n)
+    k = 1.2 * tk.ExpSquaredKernel(4.0) + 0.3 * tk.Matern32Kernel(2.0)
+    gp = gtt.GP(k, solver=TH.HODLRSolver, min_size=64, rank=12,
+                device="cpu", white_noise=np.log(0.01), fit_white_noise=True)
+    gp.compute(x, 0.3)
+    theta0 = torch.as_tensor(gp.get_parameter_vector())
+    return gp, gp.log_prob_fn(x, y, 0.3), theta0
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_graph_route_plumbing_matches_eager(monkeypatch, which):
+    """With the replay replaced by an eager value and gradient,
+    ``grad_and_value(log_prob_fn)`` and ``vmap`` of it over 3 chains give
+    the eager path's numbers bit for bit; a call on the route counts one
+    replay, the first one capture, and ``vmap`` neither."""
+    gp, f, theta0 = _route_gp()
+    rng = np.random.default_rng(which)
+    thetas = theta0 + 0.01 * torch.as_tensor(
+        rng.standard_normal((3,) + tuple(theta0.shape)))
+    gv = torch.func.grad_and_value(f)
+    want = gv(thetas[0])
+    want_b = torch.func.vmap(gv)(thetas)
+    monkeypatch.setattr(TH, "_LoglikeGraph", _EagerGraph)
+    captures, replays = TH.graph_captures, TH.graph_replays
+    got = gv(thetas[0])
+    got_b = torch.func.vmap(gv)(thetas)
+    assert (TH.graph_captures, TH.graph_replays) == (captures + 1,
+                                                     replays + 1)
+    assert gp.solver._graph is not None
+    for a, b in zip(got + got_b, want + want_b):
+        assert torch.equal(a, b)
+    assert not bool(torch.equal(want_b[0][0], want_b[0][1]))
+
+
+@pytest.mark.parametrize("case", ["cpu", "sharded", "value_only"])
+def test_graph_route_stays_eager(monkeypatch, case):
+    """A CPU call (the real graph wants CUDA), a sharded structure and a
+    value-only call take the eager sweeps: no capture, no replay."""
+    gp, f, theta0 = _route_gp()
+    if case != "cpu":
+        monkeypatch.setattr(TH, "_LoglikeGraph", _EagerGraph)
+    captures, replays = TH.graph_captures, TH.graph_replays
+    solver = gp.solver
+    if case == "sharded":
+        args = (theta0[2:], torch.ones(solver._struct.n, dtype=torch.float64),
+                torch.ones(solver._struct.n, dtype=torch.float64))
+        args = tuple(a.requires_grad_(True) for a in args)
+        assert solver._graph_route(solver._generation, args)
+        monkeypatch.setattr(solver._struct, "shard", object())
+        assert not solver._graph_route(solver._generation, args)
+    elif case == "cpu":
+        g, v = torch.func.grad_and_value(f)(theta0)
+        assert bool(torch.isfinite(g).all()) and bool(torch.isfinite(v))
+    else:
+        v = f(theta0)
+        t = theta0.clone().requires_grad_(True)
+        with torch.no_grad():
+            assert float(f(t)) == float(v)
+    assert (TH.graph_captures, TH.graph_replays) == (captures, replays)
+    assert solver._graph is None
+
+
+@pytest.mark.parametrize("how", ["grad", "vmap_grad", "jvp", "hessian_B",
+                                 "hessian_G", "double_backward"])
+def test_ridge_solve_derivatives_are_solves(how):
+    """The skeleton interpolation's ``_RidgeSolve`` (its own factor and
+    solve, no read of the error flag) differentiates as
+    ``torch.linalg.solve`` does, on a batch of symmetric ridge systems:
+    reverse mode under ``torch.func`` and plain autograd, ``vmap`` of it,
+    ``jvp``, Hessians in either argument and a double backward."""
+    gen = torch.Generator().manual_seed(0)
+    p, c, s = 5, 6, 4
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64)
+
+    M = rand(p, c, c)
+    G = M @ M.mT + 0.1 * torch.eye(c, dtype=torch.float64)
+    B, W = rand(p, c, s), rand(p, c, s)
+
+    def mine(G, B):
+        return (TH._RidgeSolve.apply(G, B)[0] * W).sum().sin()
+
+    def ref(G, B):
+        return (torch.linalg.solve(G, B) * W).sum().sin()
+
+    def plain_double(f):
+        Gr, Br = G.clone().requires_grad_(True), B.clone().requires_grad_(True)
+        gG, gB = torch.autograd.grad(f(Gr, Br), (Gr, Br), create_graph=True)
+        return torch.autograd.grad(gG.sum() + gB.sum(), (Gr, Br))
+
+    Gs = G + 0.01 * rand(3, p, c, c)
+    Bs = B.expand(3, p, c, s)
+    dG, dB = rand(p, c, c), rand(p, c, s)
+    run = {
+        "grad": lambda f: torch.func.grad(f, (0, 1))(G, B),
+        "vmap_grad": lambda f: torch.func.vmap(torch.func.grad(f, (0, 1)))(
+            Gs, Bs),
+        "jvp": lambda f: torch.func.jvp(f, (G, B), (dG, dB)),
+        "hessian_B": lambda f: (torch.func.hessian(lambda b: f(G, b))(B),),
+        "hessian_G": lambda f: (torch.func.hessian(lambda g: f(g, B))(G),),
+        "double_backward": plain_double,
+    }[how]
+    got, want = run(mine), run(ref)
+    assert float(mine(G, B)) == float(ref(G, B))
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-13 * float(b.abs().max())
