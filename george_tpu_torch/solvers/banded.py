@@ -19,11 +19,19 @@ into NaN. The exact gradient is autograd through
 the loop: its saved per-step tensors are a few ``(b, b)`` blocks per step
 (about 1.2 GB in float64 at n = 2e5, b = 152), so no checkpointing is
 needed.
+
+``banded_loglike_fn``'s likelihood runs in the profiler spans
+``banded.factor`` (the value table, the blocks, the block Cholesky) and
+``banded.solve`` (the substitutions and the quadratic term), and its reverse
+sweep in ``banded.backward``; ``block_steps`` counts the sequential block
+steps enqueued (factor, forward and back substitution), on the host.
 """
 
 import math
 
 import torch
+
+from ..diagnostics import annotate, backward_mark
 
 __all__ = [
     "band_block_size",
@@ -33,6 +41,10 @@ __all__ = [
     "banded_sqrt_matvec",
     "banded_loglike_fn",
 ]
+
+# sequential block steps enqueued by banded_cholesky (one a block) and
+# banded_solve (two a block: forward and back substitution)
+block_steps = 0
 
 
 def band_block_size(n, offsets, multiple=8, max_block=512,
@@ -104,6 +116,8 @@ def banded_cholesky(A, Bs):
     block step failed (the matrix is not positive definite), as the JAX
     package's NaN-filled factor gives.
     """
+    global block_steps
+    block_steps += A.shape[0]
     L, bad = _chol(A[0])
     Ls, Cs, failed = [L], [], [bad]
     for i in range(1, A.shape[0]):
@@ -132,9 +146,11 @@ def _block_rhs(y, b):
 
 def banded_solve(Ls, Cs, y):
     """``(K + diag)^{-1} y`` by forward + backward block substitution."""
+    global block_steps
     b = Ls.shape[1]
     Y, n, squeeze = _block_rhs(y, b)
     nb = Ls.shape[0]
+    block_steps += 2 * nb
     Z = [_lower_solve(Ls[0], Y[0])]
     for i in range(1, nb):
         Z.append(_lower_solve(Ls[i], Y[i] - Cs[i - 1] @ Z[-1]))
@@ -167,11 +183,15 @@ def banded_loglike_fn(ell_values_fn, offsets, b, n_data):
     """
 
     def loglike(theta_k, diag, r):
-        vals = ell_values_fn(theta_k)
-        A, Bs = band_blocks(vals, offsets, diag, b)
-        Ls, Cs, ld = banded_cholesky(A, Bs)
-        z = banded_solve(Ls, Cs, r)
-        quad = torch.dot(r, z)
-        return -0.5 * (quad + ld + n_data * math.log(2.0 * math.pi))
+        theta_k = backward_mark(theta_k)
+        with annotate("banded.factor"):
+            vals = ell_values_fn(theta_k)
+            A, Bs = band_blocks(vals, offsets, diag, b)
+            Ls, Cs, ld = banded_cholesky(A, Bs)
+        with annotate("banded.solve"):
+            z = banded_solve(Ls, Cs, r)
+            quad = torch.dot(r, z)
+        out = -0.5 * (quad + ld + n_data * math.log(2.0 * math.pi))
+        return backward_mark(out, "banded.backward")
 
     return loglike
