@@ -15,16 +15,33 @@ factors exactly by a sequential block Cholesky:
 package ran XLA's in a ``scan``. The loop launches a few small kernels per
 block step and never synchronizes the host; a failed factorization (the
 ``info`` of any step, combined on the device) turns the log-determinant
-into NaN. The exact gradient is autograd through
-the loop: its saved per-step tensors are a few ``(b, b)`` blocks per step
-(about 1.2 GB in float64 at n = 2e5, b = 152), so no checkpointing is
-needed.
+into NaN.
+
+The likelihood's exact gradient is written by hand (:class:`_BandedLoglike`):
+with ``K = W W^T`` (``W`` lower block-bidiagonal, diagonal blocks ``L_i``,
+``C_i`` the block ``(i+1, i)``) and ``a = K^{-1} r``, ``d ll / d K =
+1/2 (a a^T - K^{-1})`` and ``d ll / d r = -a``, and only the
+block-tridiagonal band ``S`` of ``K^{-1}`` is read: the selected inverse,
+by one backward recursion over the saved factors (the Takahashi
+equations). With ``T_i = L_i^{-T} C_i^T`` and ``P_i = L_i^{-T} L_i^{-1}``
+(each one batched launch over the blocks), ``S_{nb-1,nb-1} = P_{nb-1}``
+and, from the last block down,
+
+    ``X_i = T_i S_{i+1,i+1} = -S_{i,i+1}``;
+    ``S_{i,i} = P_i + X_i T_i^T``
+
+— two ``(b, b)`` products a step. The forward loops run inside the
+Function, so autograd records no tape of them; the value table and
+``band_blocks`` stay under autograd and carry the block gradients to the
+kernel parameters and the diagonal.
 
 ``banded_loglike_fn``'s likelihood runs in the profiler spans
 ``banded.factor`` (the value table, the blocks, the block Cholesky) and
-``banded.solve`` (the substitutions and the quadratic term), and its reverse
-sweep in ``banded.backward``; ``block_steps`` counts the sequential block
-steps enqueued (factor, forward and back substitution), on the host.
+``banded.solve`` (the substitutions and the quadratic term, nested in it),
+and its reverse sweep in ``banded.backward``; ``block_steps`` counts the
+sequential block steps enqueued (factor, forward and back substitution)
+and ``reverse_steps`` those of the selected-inverse recursion (``nb - 1``
+a gradient), on the host.
 """
 
 import math
@@ -32,6 +49,7 @@ import math
 import torch
 
 from ..diagnostics import annotate, backward_mark
+from .linalg import _per_member
 
 __all__ = [
     "band_block_size",
@@ -45,6 +63,9 @@ __all__ = [
 # sequential block steps enqueued by banded_cholesky (one a block) and
 # banded_solve (two a block: forward and back substitution)
 block_steps = 0
+# sequential steps enqueued by the selected-inverse recursion of the
+# likelihood's reverse sweep (nb - 1 a gradient)
+reverse_steps = 0
 
 
 def band_block_size(n, offsets, multiple=8, max_block=512,
@@ -96,13 +117,6 @@ def band_blocks(vals, offsets, diag, b):
     return A, Bs
 
 
-def _chol(A):
-    """Lower Cholesky factor of ``A`` and a device flag, true when the
-    factorization failed (the factor's content is then unspecified)."""
-    L, info = torch.linalg.cholesky_ex(A)
-    return L, info != 0
-
-
 def _lower_solve(L, B):
     return torch.linalg.solve_triangular(L, B, upper=False)
 
@@ -118,19 +132,21 @@ def banded_cholesky(A, Bs):
     """
     global block_steps
     block_steps += A.shape[0]
-    L, bad = _chol(A[0])
-    Ls, Cs, failed = [L], [], [bad]
+    # each step's info (nonzero: that step failed, and its factor's content
+    # is unspecified), combined once on the device
+    L, info = torch.linalg.cholesky_ex(A[0])
+    Ls, Cs, infos = [L], [], [info]
     for i in range(1, A.shape[0]):
         Ci = _lower_solve(Ls[-1], Bs[i - 1].mT).mT          # B L^{-T}
         Cs.append(Ci)
-        L, bad = _chol(A[i] - Ci @ Ci.mT)
+        L, info = torch.linalg.cholesky_ex(A[i] - Ci @ Ci.mT)
         Ls.append(L)
-        failed.append(bad)
+        infos.append(info)
     Ls = torch.stack(Ls)
     Cs = torch.stack(Cs) if Cs else A.new_zeros((0,) + A.shape[1:])
     diags = torch.diagonal(Ls, dim1=-2, dim2=-1)
     logdet = 2.0 * torch.sum(torch.log(diags))
-    logdet = torch.where(torch.stack(failed).any(),
+    logdet = torch.where(torch.stack(infos).ne(0).any(),
                          logdet.new_tensor(math.nan), logdet)
     return Ls, Cs, logdet
 
@@ -174,12 +190,78 @@ def banded_sqrt_matvec(Ls, Cs, y):
     return flat[:, 0] if squeeze else flat
 
 
+class _BandedLoglike(torch.autograd.Function):
+    """``-1/2 (r^T (K + diag)^{-1} r + log det(K + diag))`` from the
+    block-tridiagonal view ``(A, Bs)`` of ``band_blocks``, with the
+    hand-written selected-inverse reverse sweep of the module docstring.
+
+    Arguments: ``(A, Bs, r)``. Returns ``(value, Ls, Cs, alpha)``: the
+    factors and the padded solution blocks ``(nb, b)`` are returned, not
+    differentiable, so that ``torch.func`` can save them. The gradient in
+    ``A`` is symmetric (torch's Cholesky backward's convention) and the one
+    in ``Bs`` also stands for the upper blocks ``Bs^T``, which
+    ``band_blocks`` never builds. Under ``torch.func.vmap`` the batch
+    members run one after another; the backward is batched."""
+
+    @staticmethod
+    def forward(A, Bs, r):
+        Ls, Cs, ld = banded_cholesky(A, Bs)
+        with annotate("banded.solve"):
+            alpha = banded_solve(Ls, Cs, r)
+            value = -0.5 * (torch.dot(r, alpha) + ld)
+            alpha = _block_rhs(alpha, Ls.shape[1])[0][..., 0]
+        return value, Ls, Cs, alpha
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n = inputs[2].shape[-1]
+        ctx.save_for_backward(*output[1:])
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.set_materialize_grads(False)    # no zero cotangents for those
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_member(_BandedLoglike.apply, info, in_dims, args)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        global reverse_steps
+        Ls, Cs, alpha = ctx.saved_tensors
+        nb, b = Ls.shape[-3], Ls.shape[-1]
+        reverse_steps += nb - 1
+        # in float64 whatever the factors' dtype: the gradient's
+        # cancellation (a a^T against S) magnifies the rounding of the
+        # explicit inverses P and T about tenfold in float32. Each float64
+        # stack is freed once it is last read.
+        Ls, Cs, a = Ls.double(), Cs.double(), alpha.double()
+        T = torch.linalg.solve_triangular(Ls[:-1].mT, Cs.mT, upper=True)
+        Linv = _lower_solve(Ls, torch.eye(b, dtype=Ls.dtype,
+                                          device=Ls.device))
+        del Ls, Cs
+        P = Linv.mT @ Linv
+        del Linv
+        S, X = [None] * nb, [None] * (nb - 1)
+        S[-1] = P[-1].clone()
+        for i in range(nb - 2, -1, -1):
+            X[i] = T[i] @ S[i + 1]
+            S[i] = torch.addmm(P[i], X[i], T[i].mT)
+        del P
+        S = torch.stack(S)
+        X = torch.stack(X)
+        dA = torch.baddbmm(S, a[:, :, None], a[:, None, :], beta=-1)
+        dBs = torch.baddbmm(X.mT, a[1:, :, None], a[:-1, None, :])
+        return (dA.mul_(0.5 * g).to(alpha.dtype), dBs.mul_(g).to(alpha.dtype),
+                -g * alpha.reshape(-1)[:ctx.n])
+
+
 def banded_loglike_fn(ell_values_fn, offsets, b, n_data):
     """Fused exact marginal likelihood for the banded path.
 
     Returns ``loglike(theta_kernel, diag, r)``: assemble the banded entry
-    table, block Cholesky, block substitution, exact log-det. Exactly
-    differentiable by autograd (no CG, no stochastic estimators).
+    table, block Cholesky, block substitution, exact log-det
+    (:class:`_BandedLoglike`). Exactly differentiable by autograd and
+    ``torch.func`` (no CG, no stochastic estimators); the reverse sweep
+    is the selected inverse's.
     """
 
     def loglike(theta_k, diag, r):
@@ -187,11 +269,8 @@ def banded_loglike_fn(ell_values_fn, offsets, b, n_data):
         with annotate("banded.factor"):
             vals = ell_values_fn(theta_k)
             A, Bs = band_blocks(vals, offsets, diag, b)
-            Ls, Cs, ld = banded_cholesky(A, Bs)
-        with annotate("banded.solve"):
-            z = banded_solve(Ls, Cs, r)
-            quad = torch.dot(r, z)
-        out = -0.5 * (quad + ld + n_data * math.log(2.0 * math.pi))
+            out = _BandedLoglike.apply(A, Bs, r)[0]
+        out = out - 0.5 * n_data * math.log(2.0 * math.pi)
         return backward_mark(out, "banded.backward")
 
     return loglike

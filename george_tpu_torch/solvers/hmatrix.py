@@ -62,8 +62,8 @@ from .hodlr import (
     ridge_gram,
     select_aca_pivots,
 )
-from .linalg import as_points
-from .sparse import _per_member, lanczos_fn_matvec, pcg_solve, slq_logdet
+from .linalg import _per_member, as_points
+from .sparse import lanczos_fn_matvec, pcg_solve, slq_logdet
 
 __all__ = ["HMatrixSolver", "HMatrixStructure", "hmatrix_compress",
            "hmatrix_near_values", "hmatrix_matvec", "pcg_solve"]

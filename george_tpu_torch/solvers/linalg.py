@@ -89,3 +89,17 @@ def mahalanobis_loglike(L, r):
     return -0.5 * (
         chol_dot_solve(L, r) + chol_logdet(L) + n * math.log(2.0 * math.pi)
     )
+
+
+def _per_member(apply, info, in_dims, args):
+    """A Function's ``vmap`` rule that runs the batch members one after
+    another: ``apply`` on each member's slice of the batched arguments,
+    the results (a tensor, or each tensor of a tuple) stacked along
+    dimension 0."""
+    outs = [apply(*[a if d is None else a.select(d, i)
+                    for a, d in zip(args, in_dims)])
+            for i in range(info.batch_size)]
+    if isinstance(outs[0], tuple):
+        return (tuple(torch.stack(o) for o in zip(*outs)),
+                (0,) * len(outs[0]))
+    return torch.stack(outs), 0

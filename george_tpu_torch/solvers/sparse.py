@@ -54,7 +54,7 @@ from .banded import (
     band_block_size, band_blocks, banded_cholesky, banded_loglike_fn,
     banded_solve, banded_sqrt_matvec,
 )
-from .linalg import as_points
+from .linalg import _per_member, as_points
 
 __all__ = ["SparseSolver", "ell_from_csr", "ell_matvec", "ell_values",
            "ell_apply", "dia_apply", "banded_offsets", "banded_ell_tables",
@@ -384,20 +384,6 @@ class _ResidualSolve(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, r_t, _):
         return ctx.solve(r_t)
-
-
-def _per_member(apply, info, in_dims, args):
-    """A Function's ``vmap`` rule that runs the batch members one after
-    another: ``apply`` on each member's slice of the batched arguments,
-    the results (a tensor, or each tensor of a tuple) stacked along
-    dimension 0."""
-    outs = [apply(*[a if d is None else a.select(d, i)
-                    for a, d in zip(args, in_dims)])
-            for i in range(info.batch_size)]
-    if isinstance(outs[0], tuple):
-        return (tuple(torch.stack(o) for o in zip(*outs)),
-                (0,) * len(outs[0]))
-    return torch.stack(outs), 0
 
 
 class _Iteration(object):
@@ -909,9 +895,10 @@ class SparseSolver(object):
         """The gradient terms for ``a = alpha``: the kernel block over the
         kernel's full parameter vector and ``diag(a a^T - K^{-1})``.
 
-        On the banded direct path both are exact: one autograd sweep of
-        the fused block-Cholesky likelihood in theta and the diagonal,
-        whose ``d ll / d diag_i = 1/2 (a_i^2 - K^{-1}_ii)``. Otherwise the
+        On the banded direct path both are exact: one reverse sweep of
+        the fused block-Cholesky likelihood in theta and the diagonal (the
+        selected inverse of ``solvers/banded.py``), whose ``d ll / d
+        diag_i = 1/2 (a_i^2 - K^{-1}_ii)``. Otherwise the
         kernel block is the Hutchinson estimate ``1/2 a^T dK_k a - 1/2
         mean_u[(K^{-1} u)^T dK_k u]``: one multi-RHS CG for the probes,
         then for each theta direction the tangent value table applied to

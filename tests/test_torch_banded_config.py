@@ -18,7 +18,9 @@ Cholesky of ``solvers/banded.py``) on the CPU:
   iteration or step runs;
 * the spans ``banded.factor``, ``banded.solve`` and ``banded.backward``
   open once per value + gradient and change no bit of the answer;
-* ``block_steps`` grows by three steps a block every call;
+* ``block_steps`` grows by three steps a block every call, and the
+  traced run reads ``reverse_steps``, the hand-written reverse sweep's
+  steps, at one a block less one;
 * a planted fault in the factorization comes out not correct.
 """
 
@@ -106,8 +108,11 @@ def test_cell_on_cpu_matches_reference(traced):
             assert result["metrics"][name]["value"] > 0, name
         assert result["metrics"]["banded_block_steps_per_call"][
             "value"] == 3 * 32
+        assert result["metrics"]["banded_reverse_steps_per_call"][
+            "value"] == 32 - 1
         assert set(result["metrics"]) == set(METRICS) | {
-            "banded_block_steps_per_call", "compute_s"}
+            "banded_block_steps_per_call", "banded_reverse_steps_per_call",
+            "compute_s"}
     else:
         assert set(result["metrics"]) == names - {"peak_mem_gb"}
 

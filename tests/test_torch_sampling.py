@@ -216,7 +216,8 @@ def _matern_hodlr(n=600):
     return gp, x, y
 
 
-@pytest.mark.parametrize("path", ["dense", "hodlr", "sparse_iterative"])
+@pytest.mark.parametrize("path", ["dense", "hodlr", "sparse_iterative",
+                                  "sparse_direct"])
 def test_batched_chains_match_a_loop(path, monkeypatch):
     """``vmap(grad_and_value(log_prob))`` over 3 chains against a loop of
     unbatched calls, 1e-12. The HODLR rig is a Matern32 kernel at rank 8,
@@ -224,13 +225,18 @@ def test_batched_chains_match_a_loop(path, monkeypatch):
     conditioned (at the ridge floor the batched and unbatched BLAS orders
     differ by ~1e-10 in the gradient); the leaf Cholesky is called once
     for all chains. On the sparse iterative path the CG and SLQ Functions
-    run the chains one after another under ``vmap``."""
+    run the chains one after another under ``vmap``, as the banded
+    likelihood's forward does on the direct path (its selected-inverse
+    backward is batched)."""
     if path == "dense":
         gp, x, y = _nuts_model(tgt, 60, device=DEV)
     elif path == "hodlr":
         gp, x, y = _matern_hodlr()
     else:
-        gp, x, y = _sparse_model(tgt, False, device=DEV)
+        direct = "auto" if path == "sparse_direct" else False
+        gp, x, y = _sparse_model(tgt, direct, device=DEV)
+        assert (gp.solver._band_factors is not None) == (
+            path == "sparse_direct")
     f = gp.log_prob_fn(x, y, 0.1)
     rng = np.random.default_rng(2)
     v = gp.get_parameter_vector()
