@@ -262,6 +262,14 @@ class GP(ModelSet):
             self._yerr2 = self._check_dimensions(yerr) ** 2
         self._yerr2 = np.ascontiguousarray(self._yerr2, dtype=np.float64)
 
+        # the previous solver (its factors and CUDA graph, held by the
+        # fused functions and the cached solve too) goes before the next
+        # factorization, so that the two never share the device
+        self.solver = None
+        self._alpha = None
+        self._alpha_t = None
+        self._x_t = None
+        self._fused = None  # the solver is baked into the fused functions
         self.solver = self.solver_type(
             self.kernel, device=self.device, dtype=self.dtype,
             **self.solver_kwargs
@@ -275,10 +283,6 @@ class GP(ModelSet):
             len(self._x) * np.log(2 * np.pi) + self.solver.log_determinant
         )
         self.computed = True
-        self._alpha = None
-        self._alpha_t = None
-        self._x_t = None
-        self._fused = None  # the solver is baked into the fused functions
 
     def recompute(self, quiet=False, **kwargs):
         """Refactorize iff the parameters changed since :func:`compute`."""

@@ -54,10 +54,10 @@ level factor.
 Points are pre-sorted host-side (``neighbors.morton_sort_samples``, on the
 kernel's ``sort_axes`` where it declares them) so off-diagonal blocks are
 numerically low-rank; the skeleton pivots are static indices chosen once
-per ``compute`` on the host: by the ACA walk, or from a kNN matrix
-(neighbor-guided farthest points). Every first compute of a configuration
-checks its factorization against the compressed operator
-(:meth:`HODLRSolver._factorization_self_check`).
+per ``compute``: by the ACA walk (float64, on the solver's device), or on
+the host from a kNN matrix (neighbor-guided farthest points). Every first
+compute of a configuration checks its factorization against the
+compressed operator (:meth:`HODLRSolver._factorization_self_check`).
 """
 
 import contextlib
@@ -320,9 +320,11 @@ def build_structure(n, min_size=64, rank=32, seed=42, x_sorted=None,
     )
 
 
-def _host_f64(a):
+def _f64(a):
+    """``a`` in float64: a tensor on its own device, anything else on the
+    host."""
     if isinstance(a, torch.Tensor):
-        return a.detach().to("cpu", torch.float64)
+        return a.detach().to(torch.float64)
     return torch.as_tensor(np.asarray(a, dtype=np.float64))
 
 
@@ -337,16 +339,17 @@ def _aca_level_pivots(pair_fn, theta, xl, vl, xr, vr, c):
     coordinates; ``vl``/``vr``: validity masks. Returns block-local
     ``(p, c)`` row and column pivots."""
     p, s, _ = xl.shape
-    ar = torch.arange(p)
-    U = torch.zeros((p, s, c), dtype=xl.dtype)
-    Vt = torch.zeros((p, c, s), dtype=xl.dtype)
+    dev = xl.device
+    ar = torch.arange(p, device=dev)
+    U = torch.zeros((p, s, c), dtype=xl.dtype, device=dev)
+    Vt = torch.zeros((p, c, s), dtype=xl.dtype, device=dev)
     used_r = ~vl
     used_c = ~vr
     # start from the last valid row — for sorted 1-D data this is the
     # sibling interface, elsewhere a harmless seed
-    i = torch.argmax(torch.where(vl, torch.arange(s), -1), dim=1)
-    Ipiv = torch.zeros((p, c), dtype=torch.long)
-    Jpiv = torch.zeros((p, c), dtype=torch.long)
+    i = torch.argmax(torch.where(vl, torch.arange(s, device=dev), -1), dim=1)
+    Ipiv = torch.zeros((p, c), dtype=torch.long, device=dev)
+    Jpiv = torch.zeros((p, c), dtype=torch.long, device=dev)
     neg = -math.inf
     for k in range(c):
         xi = xl[ar, i]                                           # (p, d)
@@ -372,29 +375,43 @@ def select_aca_pivots(pair_fn, theta, xpad, valid, struct):
     """Re-pivot every level of ``struct`` with kernel-adaptive ACA
     skeletons (in place), then rebuild the flattened index arrays.
 
-    This walk runs on the host CPU in float64 whatever device and dtype
-    the factorization uses — by design, not as a fallback. The pivots are
-    setup-time indices, so where they are chosen is free; the walk's
-    residual downdates cancel heavily and its argmax choices flip under
-    lower-precision arithmetic, and pivots chosen in accelerator float32
+    The walk runs in float64 whatever dtype the factorization uses, by
+    design: its residual downdates cancel heavily and its argmax choices
+    flip under lower-precision arithmetic, and pivots chosen in float32
     measurably degraded the factorization (the JAX package moved the same
-    walk to host float64 for that reason). Host float64 also makes the
-    pivots independent of the device the solver runs on.
+    walk to host float64 for that reason). It runs where ``xpad`` lives:
+    on the host for an array, on a card for a tensor there (``compute``
+    passes one on the solver's device). On a card its small per-step
+    operations are launches that queue ahead of the device, where on the
+    host each is a float64 pass over every block of the level. Either way
+    it is float64, so the pivots agree in every slot the kernel decides;
+    once a pair's residual has fallen to rounding (on the finest levels of
+    a smooth kernel, after 5-10 of 12 slots) the two break its ties
+    differently. The pivots are read back once, after the last level.
     """
-    x = _host_f64(xpad)
-    v = torch.as_tensor(np.asarray(valid, dtype=bool))
-    th = _host_f64(theta)
+    x = _f64(xpad)
+    dev = x.device
+    v = torch.as_tensor(np.asarray(valid, dtype=bool), device=dev)
+    th = _f64(theta).to(dev)
+    picks = []
     with torch.no_grad():
         for lev in struct.levels:
             s, p, c = lev["s"], lev["p"], lev["c"]
             xb = x.reshape(p, 2, s, -1)
             vb = v.reshape(p, 2, s)
-            Ipiv, Jpiv = _aca_level_pivots(
+            picks += _aca_level_pivots(
                 pair_fn, th, xb[:, 0], vb[:, 0], xb[:, 1], vb[:, 1], c
             )
-            base = (np.arange(p, dtype=np.int64) * 2 * s)[:, None]
-            lev["row_piv"] = base + Ipiv.numpy()
-            lev["col_piv"] = base + s + Jpiv.numpy()
+        flat = torch.cat([t.reshape(-1) for t in picks]).cpu().numpy()
+    a = 0
+    for lev in struct.levels:
+        s, p, c = lev["s"], lev["p"], lev["c"]
+        Ipiv, Jpiv = (flat[a:a + p * c].reshape(p, c),
+                      flat[a + p * c:a + 2 * p * c].reshape(p, c))
+        a += 2 * p * c
+        base = (np.arange(p, dtype=np.int64) * 2 * s)[:, None]
+        lev["row_piv"] = base + Ipiv
+        lev["col_piv"] = base + s + Jpiv
     struct._build_flat()
 
 
@@ -1286,6 +1303,15 @@ def hodlr_sqrt_solve(sym_factors, struct, X, transpose=False):
 # ``graph_captures``)
 graph_replays = 0
 graph_captures = 0
+# the side stream of every capture on a device: torch keeps the cuBLAS
+# workspaces of every stream a handle has run on for the life of the
+# process, so a new stream for each capture would hold 64 MiB more of an
+# H100 after each ``compute``
+_CAPTURE_STREAMS = {}
+# computes whose factorization self-check ran (not skipped by the memo
+# ``HODLRSolver._checked_configs``; read it as
+# ``george_tpu_torch.solvers.hodlr.self_checks``)
+self_checks = 0
 
 
 def _value_and_grad(f, args):
@@ -1318,14 +1344,15 @@ class _LoglikeGraph(object):
     at the shapes, dtypes and device of ``args``: the kernels eager
     autograd runs, in its order, replayed with no Python between them.
 
-    On a side stream: one eager warm-up, so that library handles,
+    On the device's side stream (one for every capture, kept in
+    ``_CAPTURE_STREAMS``): one eager warm-up, so that library handles,
     workspaces and the structure's device index tables exist before the
     capture; the capture; then one replay at the warm-up's inputs, which
     has to give the warm-up's answers to within rounding (``sqrt(eps)`` of
     the largest entry), or the constructor raises: a capture that missed
     work never answers. The warm-up's cached blocks are released after
-    (they belong to the side stream, which nothing uses again); the
-    graph's memory pool stays reserved while the graph lives. ``key`` is
+    (they belong to the side stream, which only the next capture uses);
+    the graph's memory pool stays reserved while the graph lives. ``key`` is
     what the graph was captured for. The capture records the leaf
     kernel's launches without running them, so it leaves
     ``ops.chol.chol_kernel_launches`` as it found it, and each replay adds
@@ -1340,7 +1367,9 @@ class _LoglikeGraph(object):
         self.key = key
         self.inputs = [a.detach().clone() for a in args]
         dev = self.inputs[0].device
-        stream = torch.cuda.Stream(dev)
+        stream = _CAPTURE_STREAMS.get(dev)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
         current = torch.cuda.current_stream(dev)
         stream.wait_stream(current)
         self.graph = torch.cuda.CUDAGraph()
@@ -1425,8 +1454,13 @@ class HODLRSolver(object):
     :param seed: pivot RNG seed.
     :param sort: Morton-sort inputs host-side for compressibility (on the
         kernel's ``sort_axes`` where it has them, as ``LCMKernel`` does).
-    :param verbose: print the ``hodlr.aca_pivots`` (the host ACA walk),
-        ``hodlr.compute`` (the factorization) and ``hodlr.self_check``
+    :param verbose: print the ``hodlr.structure`` (the set-up up to
+        the factor: the sort, the tree, the padding and the device
+        tensors), ``hodlr.aca_pivots`` (the float64 ACA walk on the
+        solver's device, inside ``hodlr.structure``), ``hodlr.compute``
+        (the factorization),
+        ``hodlr.self_check`` and ``hodlr.graph_capture`` (the CUDA graph of
+        :meth:`loglike_fn`, at its first gradient after each ``compute``)
         spans (they are registered in ``diagnostics`` either way) and,
         under ``debug``, the self-check's numbers.
     :param debug: run the factorization self-check on every compute and
@@ -1548,6 +1582,34 @@ class HODLRSolver(object):
         self._sym_theta = None
         self._graph = None
         self._generation += 1
+        with timer("hodlr.structure", verbose=self.verbose):
+            st = self._structure(x, yerr, nns)
+        factor = hodlr_factor_sym if self.sym else hodlr_factor
+        with timer("hodlr.compute", verbose=self.verbose) as tm:
+            with torch.no_grad():
+                factors, logdet = tm.sync(factor(
+                    self.kernel.pair_fn, self._theta, self._xpad,
+                    self._valid, self._diag_pad, st,
+                ))
+        if not bool(torch.isfinite(logdet)):
+            raise np.linalg.LinAlgError(
+                "HODLR factorization failed (non-finite log-determinant)"
+            )
+        self._factors = factors
+        if self.sym:
+            # the main factors are the symmetric cascade: share them with
+            # the sqrt / sym-W surface
+            self._sym_factors = factors
+            self._sym_theta = np.array(self.kernel.parameter_vector)
+        self.log_determinant = float(logdet)
+        self.computed = True
+        with timer("hodlr.self_check", verbose=self.verbose):
+            self._factorization_self_check()
+
+    def _structure(self, x, yerr, nns):
+        """The set-up of :meth:`compute` up to the factor: the Morton
+        sort, the tree (:func:`build_structure`) and its skeleton pivots,
+        the padding, and the device tensors; returns the structure."""
         x = as_points(x)
         n = len(x)
         yerr2 = np.atleast_1d(np.asarray(yerr, dtype=np.float64)) ** 2
@@ -1596,12 +1658,13 @@ class HODLRSolver(object):
         valid[:n] = True
         if self.pivots == "aca" and nns_sorted is None and st.L > 0:
             # kernel-adaptive skeletons at the compute-time theta, chosen
-            # on the host in float64 (see select_aca_pivots); the
-            # factorization stays exact-in-theta for autograd
+            # in float64 on the solver's device (see select_aca_pivots);
+            # the factorization stays exact-in-theta for autograd
             with timer("hodlr.aca_pivots", verbose=self.verbose):
-                select_aca_pivots(self.kernel.pair_fn,
-                                  self.kernel.parameter_vector, xpad, valid,
-                                  st)
+                select_aca_pivots(
+                    self.kernel.pair_fn, self.kernel.parameter_vector,
+                    torch.as_tensor(xpad, dtype=torch.float64,
+                                    device=self.device), valid, st)
         diag_pad = np.ones(st.n_pad)
         diag_pad[:n] = yerr2[self._perm]
         self._shard = self._split_rows(st)
@@ -1616,27 +1679,7 @@ class HODLRSolver(object):
         if refine == "auto":
             refine = int(self.dtype == torch.float32 and n >= 200_000)
         self._refine_eff = refine
-        factor = hodlr_factor_sym if self.sym else hodlr_factor
-        with timer("hodlr.compute", verbose=self.verbose) as tm:
-            with torch.no_grad():
-                factors, logdet = tm.sync(factor(
-                    self.kernel.pair_fn, self._theta, self._xpad,
-                    self._valid, self._diag_pad, st,
-                ))
-        if not bool(torch.isfinite(logdet)):
-            raise np.linalg.LinAlgError(
-                "HODLR factorization failed (non-finite log-determinant)"
-            )
-        self._factors = factors
-        if self.sym:
-            # the main factors are the symmetric cascade: share them with
-            # the sqrt / sym-W surface
-            self._sym_factors = factors
-            self._sym_theta = np.array(self.kernel.parameter_vector)
-        self.log_determinant = float(logdet)
-        self.computed = True
-        with timer("hodlr.self_check", verbose=self.verbose):
-            self._factorization_self_check()
+        return st
 
     def _split_rows(self, st):
         """Split ``st``'s rows over the mesh (``None``: unsharded). Every
@@ -1703,6 +1746,8 @@ class HODLRSolver(object):
                 return
             HODLRSolver._checked_configs.add(key)
         # a non-finite theta has no bucket: never memoized, always checked
+        global self_checks
+        self_checks += 1
         rng = np.random.default_rng(self.seed + 7)
         v = rng.standard_normal(len(self._perm))
         z = self.apply_inverse(v)
@@ -1857,7 +1902,8 @@ class HODLRSolver(object):
             self._graph = None
             graph_captures += 1
             try:
-                self._graph = _LoglikeGraph(eager, key, args)
+                with timer("hodlr.graph_capture", verbose=self.verbose):
+                    self._graph = _LoglikeGraph(eager, key, args)
             except RuntimeError as err:
                 self._graph_refused = True
                 warnings.warn("HODLRSolver: the CUDA graph of the likelihood "

@@ -8,7 +8,9 @@ thetas in float32 and float64, at rank 12 and at the quasi-periodic
 configuration's rank 48; a second ``compute`` on new points captures again
 and answers for them; the counters ``graph_replays`` (one a call) and
 ``graph_captures`` (one a compute) and the leaf kernel's launch count
-across a capture and its replays; a replay makes no device read
+across a capture and its replays; repeated computes and captures on one
+GP leave the device memory as they found it; the float64 ACA walk on the
+card picks the host walk's pivots; a replay makes no device read
 (``torch.cuda.set_sync_debug_mode("error")``); a capture that raises leaves
 the solver eager, with the right answers. The CPU side of the route (the
 plumbing, and where it stays eager) is in ``tests/test_torch_hodlr.py``::
@@ -154,6 +156,102 @@ def test_new_compute_captures_again():
         want = f2(theta0)
     vgap, ggap = _gaps(got, want)
     assert vgap <= GRAPH64[0] and ggap <= GRAPH64[1], (vgap, ggap)
+
+
+@pytest.mark.cuda
+def test_recaptures_leave_device_memory_flat():
+    """A ``compute`` on new points and a capture after it, four times on
+    one GP (a refit as data arrive): the device memory allocated after
+    each stays within a quarter of the 64 MiB cuBLAS workspace that a new
+    capture stream each time kept (the previous solver's factors and graph
+    are more): the allocator's rounding of the blocks each compute reuses
+    moves the reading by about 1 MB since the ACA walk runs on the card."""
+    _card()
+    gp, f, theta0 = _gp(torch.float32)
+    f(theta0)
+    after = []
+    for k in range(4):
+        rng = np.random.default_rng(20 + k)
+        x = np.sort(rng.uniform(0, 200.0, N))
+        y = np.sin(0.1 * x) + 0.3 * rng.standard_normal(N)
+        f = None
+        gp.compute(x, 0.3)
+        f = torch.func.grad_and_value(gp.log_prob_fn(x, y, 0.3))
+        f(theta0)
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated())
+    assert max(after) - min(after) <= 16 << 20, after
+
+
+def _first_split_is_a_tie(pair_fn, theta, xa, xb, I, J, I2, J2,
+                          rtol=1e-6, atol=1e-10):
+    """Whether two ACA walks of one pair (block-local pivots ``I``, ``J``
+    and ``I2``, ``J2``) agree until a pick that the kernel does not
+    decide. The walk picks ``I[k]`` as the largest entry of the residual
+    column ``J[k-1]`` after ``k - 1`` pivots and ``J[k]`` as the largest of
+    row ``I[k]`` after ``k``; at the first pick where the walks part, the
+    exact residual (the Schur complement of the earlier pivots' block) at
+    both picks has to agree to ``rtol`` of itself plus ``atol`` of the
+    first pivot, the rounding the walk's downdates carry: two neighbouring
+    points on a smooth residual, or noise once a pair of the finest levels
+    has reached its numerical rank (5-10 of 12), which any other
+    summation order breaks another way."""
+    xa, xb = torch.as_tensor(xa), torch.as_tensor(xb)
+
+    def A(r, c):
+        return pair_fn(theta, xa[r][:, None, :], xb[c][None, :, :])
+
+    def residual(m, r, c):
+        if m == 0:
+            return A(r, c)
+        return A(r, c) - A(r, J[:m]) @ torch.linalg.solve(A(I[:m], J[:m]),
+                                                          A(I[:m], c))
+
+    first = abs(float(A(I[:1], J[:1])))
+    for k in range(len(I)):
+        if I[k] != I2[k]:
+            if k == 0:
+                return False    # the walk starts at the last valid row
+            a, b = residual(k - 1, np.array([I[k], I2[k]]), J[k - 1:k])
+        elif J[k] != J2[k]:
+            a, b = residual(k, I[k:k + 1], np.array([J[k], J2[k]]))[0]
+        else:
+            continue
+        a, b = abs(float(a)), abs(float(b))
+        return abs(a - b) <= rtol * max(a, b) + atol * first
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [False, True], ids=["smooth", "qp"])
+def test_device_aca_walk_picks_the_host_pivots(qp):
+    """``compute`` on the card walks ACA there, in float64: in every pair
+    of every level its row and column pivots are the host walk's up to a
+    pick the kernel does not decide (:func:`_first_split_is_a_tie`), and
+    the coarse levels, whose pairs stay above rounding, agree in all."""
+    _card()
+    gp, _, _ = _gp(torch.float32, rank=48 if qp else 12, qp=qp)
+    sol = gp.solver
+    st = sol._struct
+    xs = sol._x[sol._perm]
+    xpad = np.concatenate([xs, np.repeat(xs[-1:], st.n_pad - st.n, axis=0)])
+    valid = np.arange(st.n_pad) < st.n
+    host = TH.build_structure(st.n, min_size=sol.min_size, rank=sol.rank,
+                              seed=sol.seed, x_sorted=xs)
+    theta = torch.as_tensor(gp.kernel.parameter_vector, dtype=torch.float64)
+    TH.select_aca_pivots(gp.kernel.pair_fn, theta, xpad, valid, host)
+    for li, (mine, want) in enumerate(zip(st.levels, host.levels)):
+        s = want["s"]
+        if li < 2:
+            assert np.array_equal(mine["row_piv"], want["row_piv"])
+            assert np.array_equal(mine["col_piv"], want["col_piv"])
+        for q in range(want["p"]):
+            blk = xpad[2 * q * s:2 * (q + 1) * s]
+            local = [piv[q] - 2 * q * s - h for piv, h in (
+                (want["row_piv"], 0), (want["col_piv"], s),
+                (mine["row_piv"], 0), (mine["col_piv"], s))]
+            assert _first_split_is_a_tie(gp.kernel.pair_fn, theta, blk[:s],
+                                         blk[s:], *local), (s, q)
 
 
 @pytest.mark.cuda
